@@ -1,0 +1,187 @@
+"""Port retrieval (twin of the fused and streaming CUDA kernels, and
+``retrieve_topk``'s plain path) vs the JAX package: ``masked_topk`` and the
+Pallas ``fused_topk_retrieval`` / ``streaming_topk_retrieval`` in interpret
+mode.
+
+Dyadic, tie-heavy inputs (exact scores in f32) must give identical indices
+and values, including a user whose every score lies below the -1024 seen
+sentinel and a multi-tile streaming merge. Continuous inputs are held to
+tie-equivalence: agreement >= 0.98 and every mismatched slot within 5e-4
+relative under an f64 reference.
+"""
+import os
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from torch_port_checks import dyadic, tie_equivalence  # noqa: E402
+
+from lgcnhs_tpu.ops import topk as jtopk
+from lgcnhs_tpu.ops.pallas import retrieval as jret
+from lgcnhs_tpu_torch.ops import topk as ttopk
+from lgcnhs_tpu_torch.ops.cuda import retrieval as tret
+
+U, I, D = 70, 300, 16
+H100_SMEM_OPTIN = 232_448  # cudaDevAttrMaxSharedMemoryPerBlockOptin on an H100
+
+
+def _sub_sentinel(ue, ie, seen):
+    """User 0 scores below -1024 on every item and has seen nothing; user 1
+    too, but with seen items, which then outrank every unseen one."""
+    ie[:, 0] = 1.0 + np.abs(ie[:, 0])
+    ue[:2] = 0.0
+    ue[:2, 0] = -3000.0
+    seen[0] = False
+    seen[1] = False
+    seen[1, [5, 17, 250]] = True
+
+
+@pytest.fixture
+def exact_problem():
+    rng = np.random.default_rng(11)
+    ue, ie = dyadic(rng, (U, D)), dyadic(rng, (I, D))
+    seen = rng.random((U, I)) < 0.25
+    _sub_sentinel(ue, ie, seen)
+    return ue, ie, seen
+
+
+def _jax_scores(ue, ie):
+    return jnp.dot(jnp.asarray(ue), jnp.asarray(ie).T,
+                   precision=jax.lax.Precision.HIGHEST)
+
+
+def _port(ue, ie, seen, k, fn=tret.fused_topk_retrieval, **kw):
+    idx, vals = fn(torch.from_numpy(ue), torch.from_numpy(ie), torch.from_numpy(seen), k, **kw)
+    assert idx.dtype == torch.int32 and vals.dtype == torch.float32
+    return idx.numpy(), vals.numpy()
+
+
+@pytest.mark.parametrize("k", [1, 10, 100])
+def test_twin_matches_masked_topk_exactly(exact_problem, k):
+    ue, ie, seen = exact_problem
+    want = np.asarray(jtopk.masked_topk(_jax_scores(ue, ie), jnp.asarray(seen), k))
+    idx, vals = _port(ue, ie, seen, k)
+    np.testing.assert_array_equal(idx, want)
+    masked = np.where(seen, -1024.0, ue.astype(np.float64) @ ie.T.astype(np.float64))
+    np.testing.assert_array_equal(vals, np.take_along_axis(masked, want, axis=1))
+    # the sub-sentinel users: real ids, and user 1's seen items first
+    assert ((idx[:2] >= 0) & (idx[:2] < I)).all()
+    assert list(idx[1, :min(k, 3)]) == [5, 17, 250][:min(k, 3)]
+
+
+@pytest.mark.parametrize("k", [1, 10, 100])
+def test_twin_matches_pallas_fused_exactly(exact_problem, k):
+    ue, ie, seen = exact_problem
+    j_idx, j_vals = jret.fused_topk_retrieval(
+        jnp.asarray(ue), jnp.asarray(ie), jnp.asarray(seen), k, interpret=True
+    )
+    idx, vals = _port(ue, ie, seen, k)
+    np.testing.assert_array_equal(idx, np.asarray(j_idx))
+    np.testing.assert_array_equal(vals, np.asarray(j_vals))
+
+
+@pytest.mark.parametrize("k,tile", [(10, 64), (100, 128), (37, 96)])
+def test_streaming_twin_matches_pallas_streaming_exactly(exact_problem, k, tile):
+    """Multi-tile merge (I=300 over tiles of 64..128) with exact ties across
+    tile borders."""
+    ue, ie, seen = exact_problem
+    j_idx, j_vals = jret.streaming_topk_retrieval(
+        jnp.asarray(ue), jnp.asarray(ie), jnp.asarray(seen), k,
+        item_tile=tile, interpret=True,
+    )
+    idx, vals = _port(ue, ie, seen, k, fn=tret.streaming_topk_retrieval, item_tile=tile)
+    np.testing.assert_array_equal(idx, np.asarray(j_idx))
+    np.testing.assert_array_equal(vals, np.asarray(j_vals))
+
+
+def test_all_tied_scores_lowest_index_first():
+    ue = np.ones((4, 8), np.float32)
+    ie = np.ones((20, 8), np.float32)
+    seen = np.zeros((4, 20), bool)
+    seen[:, 2] = True
+    idx, _ = _port(ue, ie, seen, 5)
+    np.testing.assert_array_equal(idx, np.tile([0, 1, 3, 4, 5], (4, 1)))
+
+
+@pytest.mark.parametrize("k", [10, 100])
+def test_twin_tie_equivalent_on_continuous_inputs(k):
+    rng = np.random.default_rng(29)
+    ue = rng.standard_normal((U, D)).astype(np.float32)
+    ie = rng.standard_normal((I, D)).astype(np.float32)
+    seen = rng.random((U, I)) < 0.2
+    _sub_sentinel(ue, ie, seen)
+    j_idx, _ = jret.fused_topk_retrieval(
+        jnp.asarray(ue), jnp.asarray(ie), jnp.asarray(seen), k, interpret=True
+    )
+    ref = np.where(seen, -1024.0, ue.astype(np.float64) @ ie.T.astype(np.float64))
+    for fn in (tret.fused_topk_retrieval, tret.streaming_topk_retrieval):
+        idx, _ = _port(ue, ie, seen, k, fn=fn)
+        agreement, gap = tie_equivalence(np.asarray(j_idx), idx, ref)
+        assert agreement >= 0.98 and gap <= 5e-4, (fn.__name__, agreement, gap)
+
+
+def test_retrieve_topk_plain_path_matches_jax(exact_problem):
+    ue, ie, seen = exact_problem
+    want = np.asarray(jtopk.retrieve_topk(jnp.asarray(ue), jnp.asarray(ie), jnp.asarray(seen), 10))
+    got = ttopk.retrieve_topk(torch.from_numpy(ue), torch.from_numpy(ie), torch.from_numpy(seen), 10)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_cpu_tensors_take_the_twin_and_count_no_launch(exact_problem):
+    ue, ie, seen = exact_problem
+    before = (tret.fused_topk_retrieval.launches, tret.streaming_topk_retrieval.launches)
+    a = _port(ue, ie, seen, 10)
+    b = _port(ue, ie, seen, 10, fn=tret.streaming_topk_retrieval)
+    c = tret.fused_topk_retrieval_ref(
+        torch.from_numpy(ue), torch.from_numpy(ie), torch.from_numpy(seen), 10
+    )
+    for got in (a, b):
+        np.testing.assert_array_equal(got[0], c[0].numpy())
+    assert (tret.fused_topk_retrieval.launches, tret.streaming_topk_retrieval.launches) == before
+
+
+@pytest.mark.parametrize("k", [0, I + 1])
+def test_k_outside_the_catalog_raises(exact_problem, k):
+    ue, ie, seen = exact_problem
+    with pytest.raises(ValueError, match="k must be"):
+        _port(ue, ie, seen, k)
+
+
+def test_guards_size_against_the_block_limit():
+    # ML-1M (3706 items, D=64): the one-shot kernel fits an H100 block
+    assert tret.fits_smem_retrieval(3706, 64, H100_SMEM_OPTIN)
+    assert not tret.fits_smem_retrieval(50_000, 64, H100_SMEM_OPTIN)
+    tile = tret.pick_stream_tile(64, 100, H100_SMEM_OPTIN)
+    assert tile == 2048 and tret.stream_smem_bytes(64, 100, 2 * tile) > H100_SMEM_OPTIN
+    assert tret.stream_smem_bytes(1024, 100, tret.pick_stream_tile(1024, 100, H100_SMEM_OPTIN)) \
+        <= H100_SMEM_OPTIN
+    # a large k narrows the tile, and a hopeless one finds none
+    narrow = tret.pick_stream_tile(64, 1000, H100_SMEM_OPTIN)
+    assert narrow is not None and narrow < tret.MAX_TILE
+    assert tret.pick_stream_tile(64, 20_000, H100_SMEM_OPTIN) is None
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_select_topk_orders_signed_zeros_like_xla(dtype, x64):
+    """XLA's top_k ranks +0.0 above -0.0; a fused score G*0 carries G's
+    sign, so the order decides real ties."""
+    x = np.array([[0.0, -0.0, 0.0, -0.0, 1.0, -1.0, -0.0, 2.0]], dtype)
+    x = np.concatenate([x, -x])
+    want_v, want_i = jax.lax.top_k(jnp.asarray(x), 8)
+    got_v, got_i = ttopk.select_topk(torch.from_numpy(x), 8)
+    np.testing.assert_array_equal(got_i.numpy(), np.asarray(want_i))
+    np.testing.assert_array_equal(np.signbit(got_v.numpy()), np.signbit(np.asarray(want_v)))
+
+
+@pytest.fixture
+def x64():
+    was = jax.config.jax_enable_x64
+    jax.config.update("jax_enable_x64", True)
+    yield
+    jax.config.update("jax_enable_x64", was)
