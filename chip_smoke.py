@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """GPU smoke of the PyTorch/CUDA port (``lgcnhs_tpu_torch``): the quickest
-proof that the port builds and serves on an NVIDIA Hopper card.
+proof that the port builds, trains and serves on an NVIDIA Hopper card.
 
     python3 chip_smoke.py
 
@@ -16,17 +16,29 @@ neither JAX nor ``lgcnhs_tpu``. Phases:
    k=10/100 with sub-sentinel users, streaming retrieval at 50k items and at
    D=1024, fused serving with a fewer-than-k-unseen user, all at the slice's
    6040 x 3706 x 64 too, and ragged shapes (partial user blocks, k == I,
-   I below a warp, k above 128).
+   I below a warp, k above 128). ``dual_matmul`` (training) for its four
+   dtype pairs on the slice's 6040 x 3706 train incidence at D=64, forward
+   and backward: bitwise equal on dyadic inputs, within 1e-5 of each
+   output's scale on continuous ones (f32 sums in another order; a bf16
+   gradient also within one bf16 rounding), two launches bitwise equal;
+   and on ragged shapes (U, I off the tiles, I below a warp, D 8/64/128).
 4. The serving slice end to end through ``lgcnhs_tpu_torch.cli.retrieve``
    (ML-1M scale, ``--env prod``, k=100) with a seeded LightGCNOpti
    checkpoint: SpreadLightGCNOpti, LightGCNOpti, and LightGCNOpti over a
-   catalog beyond the one-shot kernel's cap. Launch counts are zeroed just
-   before and read just after; every output is checked against the plain
-   chain.
+   catalog beyond the one-shot kernel's cap. Then the training slice: the
+   same CLI on an empty workdir trains LightGCNOpti for 1000 epochs through
+   the ``dual_matmul`` kernel (6 launches a step) and serves
+   SpreadLightGCNOpti from the checkpoint it wrote. Launch counts are zeroed
+   just before each path and read just after; every output is checked
+   against the plain chain, the training history for finite values and a
+   falling loss. Last, 20 epochs on the kernel route and on the twin route
+   from one seed, compared within the stated tolerance.
 5. Timings at the main path's shapes: kernel, plain twin, and the nearest
-   library composition (torch.matmul + torch.topk; no single PyTorch call
-   computes these functions, so ``library_ms`` is null), medians of
-   CUDA-event timings.
+   library composition (torch.matmul + torch.topk, two bf16 torch.matmul
+   for ``dual_matmul``; no single PyTorch call computes these functions, so
+   ``library_ms`` is null), medians of CUDA-event timings; the train step's
+   ms and examples/s over a synchronized steady window, and its device time
+   by kernel from ``torch.profiler``.
 
 Prints one PASS/FAIL line per check, then (all passed) the kernel JSON line,
 the ``nvidia-smi`` name/power-limit line, and the final
@@ -35,7 +47,9 @@ no result.
 """
 from __future__ import annotations
 
+import csv
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -56,6 +70,20 @@ GAP_MAX = 5e-4
 # outside the tensor cores (every kernel here is full f32)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOP_PER_S = 67e12
+PEAK_BF16_FLOP_PER_S = 989e12  # dense tensor-core rate, dual_matmul's operand type
+TRAIN_EPOCHS = 1000
+TWIN_EPOCHS = 20
+DUAL_REL_TOL = 1e-5
+BF16_ULP = 2.0 ** -7  # bf16 spacing: at most 2^-7 of a value
+# Kernel route vs twin route over TWIN_EPOCHS (phase 4). Their f32 sums
+# differ in order, so a bf16 cast between layers can round one step apart
+# (2^-8 relative on an element); that can flip a small gradient's sign, and
+# Adam then moves the element up to ~2 lr a step apart (0.04 over 20 steps
+# at lr 1e-3). Measured: table gaps 1.9e-5 and 8.7e-6 at table scale 3.0,
+# losses equal to 5 decimals (PERF.md). The tolerances sit 50x above
+# the measured gaps, far below the worst case.
+TWIN_LOSS_TOL = 1e-4
+TWIN_TABLE_TOL = 1e-3
 
 
 class Checks:
@@ -129,8 +157,8 @@ def median_ms(torch, fn, reps, warmup=1):
     return times[len(times) // 2]
 
 
-def bound(nbytes, flops):
-    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / PEAK_F32_FLOP_PER_S
+def bound(nbytes, flops, peak_flops=PEAK_F32_FLOP_PER_S):
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / peak_flops
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -149,15 +177,19 @@ def main() -> int:
         from lgcnhs_tpu_torch import config as tcfg
         from lgcnhs_tpu_torch.cli import retrieve
         from lgcnhs_tpu_torch.data.datasets import load_dataset
-        from lgcnhs_tpu_torch.data.graph import build_graph, interaction_matrix, pos_bool_matrix
-        from lgcnhs_tpu_torch.models.lightgcn import init_lightgcn_opti
+        from lgcnhs_tpu_torch.data.graph import (
+            build_graph, interaction_matrix, pos_bool_matrix, unique_edges,
+        )
+        from lgcnhs_tpu_torch.models.lightgcn import LightGCNParams, init_lightgcn_opti
         from lgcnhs_tpu_torch.models.recommenders import checkpoint_path
         from lgcnhs_tpu_torch.ops.cuda import build
         from lgcnhs_tpu_torch.ops.cuda import fusion_serve as fs
+        from lgcnhs_tpu_torch.ops.cuda import propagation as prop
         from lgcnhs_tpu_torch.ops.cuda import retrieval as rt
         from lgcnhs_tpu_torch.ops.diffusion import general_spreading_matrix, hybrid_transfer
         from lgcnhs_tpu_torch.ops.topk import MASK_VALUE, masked_topk
-        from lgcnhs_tpu_torch.train.trainer import save_checkpoint
+        from lgcnhs_tpu_torch.train import trainer
+        from lgcnhs_tpu_torch.train.trainer import load_checkpoint, save_checkpoint
     except ImportError as e:
         print(f"chip_smoke: the lgcnhs_tpu_torch package is not beside this script ({e})",
               file=sys.stderr)
@@ -282,17 +314,73 @@ def main() -> int:
                     fs.fused_lgcnhs_serve(ue, ie, A, W, A > 0, k),
                     fs.fused_lgcnhs_serve_ref(ue, ie, A, W, A > 0, k))
 
+    def dual_case(label, R, X, Y, exact):
+        """dual_matmul against its twin, forward and backward (cotangents
+        through torch.autograd.grad), and against a second launch."""
+        got, again = prop.dual_matmul(R, X, Y), prop.dual_matmul(R, X, Y)
+        want = prop.dual_matmul_ref(R, X, Y)
+        torch.cuda.synchronize()
+        check(f"dual_matmul {label}: two launches bitwise equal",
+              all(torch.equal(a, b) for a, b in zip(got, again)))
+        gu, gi = (cuda(dyadic(tuple(t.shape)) if exact else normal(tuple(t.shape), 1.0))
+                  for t in want)
+        grads = []
+        for fn in (prop.dual_matmul, prop.dual_matmul_ref):
+            Xg, Yg = X.detach().requires_grad_(True), Y.detach().requires_grad_(True)
+            grads.append(torch.autograd.grad(fn(R, Xg, Yg), (Xg, Yg), (gu, gi)))
+        torch.cuda.synchronize()
+        # a bf16 gradient is an f32 sum rounded to bf16: f32 sums in another
+        # order may round one bf16 step (<= 2^-7 of the value) apart
+        ulp_bwd = BF16_ULP if X.dtype == torch.bfloat16 else 0.0
+        for what, g, w, ulp in (("forward", got, want, 0.0),
+                                ("backward", grads[0], grads[1], ulp_bwd)):
+            if exact:
+                diff = max((a.float() - b.float()).abs().max().item() for a, b in zip(g, w))
+                check(f"dual_matmul {label} {what} == twin (bitwise)",
+                      all(torch.equal(a, b) for a, b in zip(g, w)), f"max |diff| {diff:.3e}")
+                continue
+            err = max(((a.float() - b.float()).abs() - ulp * b.float().abs()).max().item()
+                      / max(b.float().abs().max().item(), 1e-30) for a, b in zip(g, w))
+            check(f"dual_matmul {label} {what} within {DUAL_REL_TOL:g} of the twin's scale",
+                  err <= DUAL_REL_TOL, f"max relative error {err:.3e}")
+
+    def dual_checks(R8):
+        """The four dtype pairs on the slice's train incidence (float R:
+        its pattern with dyadic or normal values), then ragged shapes."""
+        U, I = R8.shape
+        names = {torch.float32: "f32", torch.bfloat16: "bf16", torch.int8: "int8"}
+        for rdt, edt in prop.PAIRS:
+            for exact in (True, False):
+                vals = dyadic if exact else (lambda shape: normal(shape, 1.0))
+                R = R8 if rdt == torch.int8 else (R8.float() * cuda(vals((U, I)))).to(rdt)
+                dual_case(f"{U}x{I}x64 {names[rdt]}/{names[edt]} "
+                          f"{'dyadic' if exact else 'continuous'}", R,
+                          cuda(vals((I, 64))).to(edt), cuda(vals((U, 64))).to(edt), exact)
+        for U2, I2, D2 in ((37, 300, 8), (13, 20, 64), (70, 1000, 128), (500, 31, 64), (1, 1, 8)):
+            mask = cuda(gen.random((U2, I2)) < 0.3)
+            for rdt, edt in prop.PAIRS:
+                R = mask.to(torch.int8) if rdt == torch.int8 else \
+                    (mask.float() * cuda(dyadic((U2, I2)))).to(rdt)
+                dual_case(f"edge U={U2} I={I2} D={D2} {names[rdt]}/{names[edt]}", R,
+                          cuda(dyadic((I2, D2))).to(edt), cuda(dyadic((U2, D2))).to(edt), True)
+
     print("[phase 3] kernels against their twins", flush=True)
     check.guard("edge shapes", edge_checks)
     ds_cfg = tcfg.load_config(env="prod", dataset="movielens1m", model="LightGCNOpti")
-    splits, _, _ = load_dataset(ds_cfg)
+    splits, feats_u, feats_i = load_dataset(ds_cfg)
     graph = build_graph(splits)
+    R8_slice, du_slice, di_slice = trainer.device_binary_factors(
+        graph.n_users, graph.n_items, graph.train, dev)
     A_slice = interaction_matrix(graph.n_users, graph.n_items, graph.train, graph.val)
     check("ML-1M one-shot retrieval fits a block",
           rt.fits_smem_retrieval(graph.n_items, 64, limit), f"{graph.n_items} items")
     check(f"{BIG_CATALOG} items exceed the one-shot cap",
           not rt.fits_smem_retrieval(BIG_CATALOG, 64, limit))
     check("ML-1M fused serve fits a block", fs.fits_smem_serve(graph.n_items, 64, limit))
+    check("dual_matmul guard: D=64 and D=128 fit, D=129 does not",
+          prop.fits_smem_dual(64, limit) and prop.fits_smem_dual(128, limit)
+          and not prop.fits_smem_dual(129, limit))
+    check.guard("dual_matmul", dual_checks, R8_slice)
     check.guard("retrieval 384x896", retrieval_checks, 384, 896, 64, (10, 100), "384x896")
     check.guard("retrieval slice", retrieval_checks, graph.n_users, graph.n_items, 64,
                 (10, 100), f"{graph.n_users}x{graph.n_items}x64")
@@ -345,9 +433,10 @@ def main() -> int:
         check(f"main path launched {name}", n > 0, f"{n} launches")
 
     timing_inputs = {}
-    for (model, args), rec in zip(runs, outputs):
-        cfg, g, params = cells[(model, args[1])]
-        label = f"cli/retrieve {model} {args[1]} ({g.n_users}x{g.n_items}, k={cfg.k})"
+
+    def output_checks(model, dataset, cfg, g, params, rec, timing_key):
+        """The served (U, k) lists against the plain chain."""
+        label = f"cli/retrieve {model} {dataset} ({g.n_users}x{g.n_items}, k={cfg.k})"
         seen = cuda(pos_bool_matrix(g.n_users, g.n_items, g.train, g.val))
         ue, ie = params.user_emb.to(dev), params.item_emb.to(dev)
         got = cuda(rec)
@@ -360,20 +449,100 @@ def main() -> int:
         if model == "LightGCNOpti":
             want = masked_topk(ue @ ie.T, seen, K_SLICE)
             ref = retrieval_ref64(ue, ie, seen)
-            timing_inputs["fused_topk_retrieval" if args is ml1m
-                          else "streaming_topk_retrieval"] = (ue, ie, seen, K_SLICE)
+            timing_inputs[timing_key] = (ue, ie, seen, K_SLICE)
         else:
             A = cuda(interaction_matrix(g.n_users, g.n_items, g.train, g.val))
             W = hybrid_transfer(A, general_spreading_matrix(A), cfg.hparams.lambda_)
             want = fs.fused_lgcnhs_serve_ref(ue, ie, A, W, seen, K_SLICE)[0]
             ref = serve_ref64(ue, ie, A, W, seen)
-            timing_inputs["fused_lgcnhs_serve"] = (ue, ie, A, W, seen, K_SLICE)
+            timing_inputs[timing_key] = (ue, ie, A, W, seen, K_SLICE)
         agreement, gap = tie_equivalence(torch, want, got, ref)
         check(f"{label} tie-equivalent to the plain chain",
               agreement >= AGREEMENT_MIN and gap <= GAP_MAX,
               f"agreement {agreement:.6f}, max relative gap {gap:.3e}")
-        del ref
+
+    for (model, args), rec in zip(runs, outputs):
+        cfg, g, params = cells[(model, args[1])]
+        output_checks(model, args[1], cfg, g, params, rec,
+                      "fused_topk_retrieval" if args is ml1m and model == "LightGCNOpti"
+                      else "streaming_topk_retrieval" if model == "LightGCNOpti"
+                      else "fused_lgcnhs_serve")
+
+    # the training slice: an empty workdir, so cli/retrieve trains first
+    print(f"[phase 4] cli/retrieve trains LightGCNOpti ({TRAIN_EPOCHS} epochs) and serves",
+          flush=True)
+    train_work = tempfile.mkdtemp(prefix="chip_smoke_train_", dir=os.path.join(ROOT, "artifacts"))
+    path_kernels = {**kernels, "dual_matmul": prop.dual_matmul}
+    for fn in path_kernels.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    rec = retrieve.main(["--device", "cuda", "--workdir", train_work, "--model",
+                         "SpreadLightGCNOpti", *ml1m, "--epochs", str(TRAIN_EPOCHS)])
+    torch.cuda.synchronize()
+    train_serve_s = time.perf_counter() - t0
+    train_launches = {name: fn.launches for name, fn in path_kernels.items()}
+    print(f"[phase 4] train + serve in {train_serve_s:.2f} s; launches {train_launches}",
+          flush=True)
+    check(f"training path launched dual_matmul 6 x {TRAIN_EPOCHS}",
+          train_launches["dual_matmul"] == 6 * TRAIN_EPOCHS, f"{train_launches['dual_matmul']}")
+    check("training path launched fused_lgcnhs_serve", train_launches["fused_lgcnhs_serve"] > 0)
+    cfg_t = tcfg.load_config(env="prod", dataset="movielens1m", model="SpreadLightGCNOpti",
+                             workdir=train_work, overrides={"hparams.epochs": TRAIN_EPOCHS})
+    with open(os.path.join(cfg_t.pictures_path, f"LightGCNOpti_{cfg_t.k}_val_metrics.csv")) as f:
+        rows = list(csv.DictReader(f))
+    history = {name: [float(r[name]) for r in rows] for name in rows[0]}
+    print(f"[phase 4] history {json.dumps(history)}", flush=True)
+    check("training history: every value finite",
+          all(math.isfinite(v) for col in history.values() for v in col))
+    iters = [int(v) for v in history["iters"]]
+    check(f"training history: evals at {list(range(0, TRAIN_EPOCHS, 200))}",
+          iters == list(range(0, TRAIN_EPOCHS, 200)), f"{iters}")
+    tl = dict(zip(iters, history["train_loss"]))
+    check("training: train loss at epoch 800 below epoch 0", tl.get(800, 0.0) < tl.get(0, 0.0),
+          f"{tl.get(0)} -> {tl.get(800)}")
+    params_t = load_checkpoint(checkpoint_path(cfg_t), dev)
+    output_checks("SpreadLightGCNOpti", "movielens1m (trained)", cfg_t, graph, params_t, rec,
+                  "fused_lgcnhs_serve")
+
+    def twin_route_compare():
+        """TWIN_EPOCHS epochs from one seed on the kernel route and on the
+        same route with the plain twin in the kernel's place."""
+        cfg20 = tcfg.load_config(env="prod", dataset="movielens1m", model="LightGCNOpti",
+                                 workdir=train_work,
+                                 overrides={"hparams.epochs": TWIN_EPOCHS,
+                                            "hparams.epoch_per_eval": 10})
+        results, counts = {}, {}
+        for route in ("kernel", "twin"):
+            kernel_fn = prop.dual_matmul
+            if route == "twin":
+                prop.dual_matmul = prop.dual_matmul_ref
+            kernel_fn.launches = 0
+            try:
+                results[route] = trainer.train_lightgcn(graph, cfg20, feats_u, feats_i,
+                                                        save_artifacts=False, device=dev)
+            finally:
+                prop.dual_matmul = kernel_fn
+            counts[route] = kernel_fn.launches
+        check("twin route: kernel launched 6 a step, twin route none",
+              counts == {"kernel": 6 * TWIN_EPOCHS, "twin": 0}, f"{counts}")
+        hk, ht = results["kernel"].history, results["twin"].history
+        loss_gap = max(abs(a - b) for col in ("train_loss", "val_loss")
+                       for a, b in zip(hk[col], ht[col]))
+        table_gap = max((a - b).abs().max().item() for a, b in
+                        zip(results["kernel"].params, results["twin"].params))
+        scale = max(t.abs().max().item() for t in results["twin"].params)
+        print(f"[phase 4] kernel vs twin route, {TWIN_EPOCHS} epochs: losses "
+              f"{hk['train_loss']} / {ht['train_loss']}, max loss gap {loss_gap:.3e}, "
+              f"max table gap {table_gap:.3e} (table scale {scale:.3e})", flush=True)
+        check(f"kernel route tracks the twin route over {TWIN_EPOCHS} epochs: losses",
+              loss_gap <= TWIN_LOSS_TOL, f"max gap {loss_gap:.3e}, tolerance {TWIN_LOSS_TOL:g}")
+        check(f"kernel route tracks the twin route over {TWIN_EPOCHS} epochs: tables",
+              table_gap <= TWIN_TABLE_TOL,
+              f"max gap {table_gap:.3e}, tolerance {TWIN_TABLE_TOL:g}")
+
+    check.guard("kernel route against the twin route", twin_route_compare)
     shutil.rmtree(work, ignore_errors=True)
+    shutil.rmtree(train_work, ignore_errors=True)
 
     # -- 5. timings at the main path's shapes ------------------------------
     print(f"[phase 5] timings on {smi}", flush=True)
@@ -430,6 +599,121 @@ def main() -> int:
               f"matmul+topk {composition_ms:.4f}, bound {bound_ms:.4f} by {bound_by}) "
               f"max_abs_err {max_abs_err:.3e} [{smi}]", flush=True)
         report.append(row)
+
+    def device_ms_by_kernel(fn, n):
+        """{kernel name: device ms per call of fn} from torch.profiler over
+        n calls, and the window's wall ms; ({}, None) when it traces no
+        device time."""
+        from torch.profiler import ProfilerActivity, profile
+
+        fn()
+        torch.cuda.synchronize()
+        try:
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                for _ in range(n):
+                    fn()
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3 / n
+        except Exception:  # no device trace: reported as not measured
+            traceback.print_exc()
+            return {}, None
+        by_kernel = {}
+        for ev in prof.key_averages():
+            dev_us = getattr(ev, "self_device_time_total", None)
+            if dev_us is None:
+                dev_us = getattr(ev, "self_cuda_time_total", 0.0)
+            if dev_us and getattr(ev, "device_type", None) == torch.autograd.DeviceType.CUDA:
+                by_kernel[ev.key] = dev_us / 1e3 / n
+        return by_kernel, wall_ms
+
+    # dual_matmul at the training step's shapes: the slice's int8 incidence
+    # and the bf16 layer-0 operands of the trained tables
+    U, I, D = graph.n_users, graph.n_items, 64
+    X = (di_slice[:, None] * params_t.item_emb).to(torch.bfloat16)
+    Y = (du_slice[:, None] * params_t.user_emb).to(torch.bfloat16)
+    # the transpose is built once per training run: timed on its own, not
+    # in the kernel's ms
+    RT_slice = prop.transpose_for_dual(R8_slice)
+    got = prop.dual_matmul(R8_slice, X, Y, RT_slice)
+    want = prop.dual_matmul_ref(R8_slice, X, Y)
+    max_abs_err = max((a - b).abs().max().item() for a, b in zip(got, want))
+    reps = 20
+    ms = median_ms(torch, lambda: prop.dual_matmul(R8_slice, X, Y, RT_slice), reps)
+    transpose_ms = median_ms(torch, lambda: prop.transpose_for_dual(R8_slice), reps)
+    Xg, Yg = X.detach().requires_grad_(True), Y.detach().requires_grad_(True)
+    out = prop.dual_matmul(R8_slice, Xg, Yg, RT_slice)
+    cot = (torch.randn_like(out[0]), torch.randn_like(out[1]))
+    bwd_ms = median_ms(torch, lambda: torch.autograd.grad(out, (Xg, Yg), cot, retain_graph=True),
+                       reps)
+    plain_ms = median_ms(torch, lambda: prop.dual_matmul_ref(R8_slice, X, Y), reps)
+    Rb = R8_slice.to(torch.bfloat16)
+    matmul_ms = median_ms(torch, lambda: (torch.matmul(Rb, X), torch.matmul(Rb.T, Y)), reps)
+    del Rb
+    dual_dev, _ = device_ms_by_kernel(lambda: prop.dual_matmul(R8_slice, X, Y, RT_slice), 20)
+    dual_device_ms = sum(dual_dev.values()) if dual_dev else None
+    nnz = int(R8_slice.sum(dtype=torch.int64))
+    deg_u = R8_slice.sum(dim=1, dtype=torch.int64)
+    deg_i = R8_slice.sum(dim=0, dtype=torch.int64)
+    skew = (f"degrees: users max {int(deg_u.max())}, items max {int(deg_i.max())}, "
+            f"items p99 {float(deg_i.double().quantile(0.99)):.1f}")
+    # each input read once (R int8, X and Y bf16), each output written once (f32)
+    nbytes = U * I + 2 * (I * D + U * D) + 4 * (U * D + I * D)
+    bound_ms, bound_by = bound(nbytes, 4 * nnz * D, PEAK_BF16_FLOP_PER_S)
+    report.append({
+        "name": "dual_matmul", "route": "cuda",
+        "source": "lgcnhs_tpu_torch/ops/cuda/propagation.cu",
+        "replaces": "lgcnhs_tpu/ops/pallas/propagation.py:164",
+        "launches": train_launches["dual_matmul"], "max_abs_err": max_abs_err, "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": None, "matmul_ms": matmul_ms, "backward_ms": bwd_ms,
+        "device_ms": dual_device_ms, "transpose_ms": transpose_ms,
+    })
+    print(f"[phase 5] dual_matmul U={U} I={I} D={D} nnz={nnz} int8/bf16: forward {ms:.4f} ms "
+          f"(device {dual_device_ms}), backward {bwd_ms:.4f} ms, transpose {transpose_ms:.4f} ms "
+          f"once per run, twin {plain_ms:.4f}, "
+          f"two bf16 matmuls {matmul_ms:.4f}, bound {bound_ms:.4f} by {bound_by}, "
+          f"max_abs_err {max_abs_err:.3e}; {skew}; device ms by kernel {dual_dev} [{smi}]",
+          flush=True)
+
+    # the train step over a synchronized steady window, then its device
+    # time by kernel
+    hp = cfg_t.hparams
+    p0 = init_lightgcn_opti(torch.Generator().manual_seed(SEED), feats_u, feats_i, D, dev)
+    p0 = LightGCNParams(*(t.clone().requires_grad_(True) for t in p0))
+    step = trainer.make_train_step(trainer.make_optimizer(hp, p0), hp, I,
+                                   bf16_matmul=True, use_kernel=True)
+    te = unique_edges(graph.train)
+    step_args = ((R8_slice, du_slice, di_slice, RT_slice),
+                 torch.from_numpy(te.users.astype(np.int64)).to(dev),
+                 torch.from_numpy(te.items.astype(np.int64)).to(dev),
+                 cuda(pos_bool_matrix(U, I, graph.train)))
+    epoch = [0]
+
+    def one_step():
+        e = epoch[0]
+        epoch[0] += 1
+        return step(p0, e, trainer.epoch_generator(hp.seed, e, dev), *step_args)
+
+    for _ in range(20):
+        one_step()
+    torch.cuda.synchronize()
+    n_steps = 200
+    t0 = time.perf_counter()
+    for _ in range(n_steps):
+        one_step()
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / n_steps
+    step_dev, step_wall = device_ms_by_kernel(one_step, 20)
+    busy_ms = sum(step_dev.values())
+    dual_step_ms = sum(v for k, v in step_dev.items() if "dual_" in k)
+    top = sorted(step_dev.items(), key=lambda kv: -kv[1])[:8]
+    idle = f"{1 - busy_ms / step_wall:.3f}" if step_dev and step_wall else "not measured"
+    print(f"[phase 5] train step (int8 dual_matmul route, B={hp.batch_size}): {step_ms:.4f} ms, "
+          f"{hp.batch_size / step_ms * 1e3:.1f} examples/s over {n_steps} steps; profiled "
+          f"window {step_wall} ms/step, device busy {busy_ms:.4f} ms/step "
+          f"(idle share {idle}), dual_matmul kernels {dual_step_ms:.4f} ms/step; top kernels "
+          f"{json.dumps([(k[:60], round(v, 5)) for k, v in top])} [{smi}]", flush=True)
 
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
     if check.failures:

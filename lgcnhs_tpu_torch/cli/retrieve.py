@@ -1,7 +1,8 @@
 """Batch retrieval from a trained checkpoint (serving path).
 
 Port of ``lgcnhs_tpu/cli/retrieve.py``: loads a LightGCN[Opti] checkpoint
-(the npz the JAX trainer writes), serves every user over the full catalog
+(the npz either package's trainer writes; trained first, and written, when
+it is missing or its shape mismatches), serves every user over the full catalog
 with train+val positives masked, and writes the (U, k) recommendation matrix
 to ``<workdir>/<dataset>/recommend/retrieval_<model>_<k>.npy``.
 
@@ -12,7 +13,7 @@ to ``<workdir>/<dataset>/recommend/retrieval_<model>_<k>.npy``.
 
 Usage:
   python -m lgcnhs_tpu_torch.cli.retrieve --dataset movielens1m --env prod \\
-      --model SpreadLightGCNOpti --workdir artifacts [--device cpu]
+      --model SpreadLightGCNOpti --workdir artifacts [--epochs N] [--device cpu]
 """
 from __future__ import annotations
 
@@ -21,12 +22,13 @@ import os
 import numpy as np
 import torch
 
-from lgcnhs_tpu_torch.cli.common import base_parser, config_from_args, resolve_device
+from lgcnhs_tpu_torch.cli.common import base_parser, config_from_args
 from lgcnhs_tpu_torch.data.datasets import load_dataset
 from lgcnhs_tpu_torch.data.graph import build_graph, pos_bool_matrix
 from lgcnhs_tpu_torch.models.fusion import serve_fused
 from lgcnhs_tpu_torch.models.recommenders import get_or_train_params
 from lgcnhs_tpu_torch.ops.topk import retrieve_topk
+from lgcnhs_tpu_torch.runtime.device import resolve_device
 from lgcnhs_tpu_torch.runtime.logging import get_logger
 
 
@@ -42,9 +44,9 @@ def main(argv=None) -> np.ndarray:
     cfg = config_from_args(args)
     log = get_logger("lgcnhs", cfg.log_path)
 
-    splits, _, _ = load_dataset(cfg)
+    splits, user_features, item_features = load_dataset(cfg)
     graph = build_graph(splits)
-    params = get_or_train_params(graph, cfg, device)
+    params = get_or_train_params(graph, cfg, device, user_features, item_features)
 
     if cfg.model in ("SpreadLightGCN", "SpreadLightGCNOpti"):
         rec = serve_fused(graph, cfg, params, exact=args.serve_exact)

@@ -1,8 +1,9 @@
 """Graph arrays, in numpy.
 
-Port of the serving slice of ``lgcnhs_tpu/data/graph.py``: interactions stay
-as flat (user, item) index arrays, and the dense U x I incidence is built once,
-vectorized (reference ``utils/trans.py:13-80``).
+Port of ``lgcnhs_tpu/data/graph.py`` (all but the bf16 device incidence of
+the large-graph rung): interactions stay as flat (user, item) index arrays,
+and the dense U x I incidence is built once, vectorized (reference
+``utils/trans.py:13-116``).
 """
 from __future__ import annotations
 
@@ -88,3 +89,54 @@ def pos_bool_matrix(n_users: int, n_items: int, *edge_sets: EdgeSet) -> np.ndarr
     """Boolean positives matrix (reference uid -> [iid...] dicts,
     ``utils/trans.py:51-80``)."""
     return interaction_matrix(n_users, n_items, *edge_sets, dtype=np.bool_)
+
+
+def item_degrees(n_items: int, *edge_sets: EdgeSet) -> np.ndarray:
+    """Item degree = number of interaction ROWS touching the item across the
+    given splits (reference ``utils/trans.py:94-116`` counts dict-list
+    entries, not unique pairs). int64."""
+    deg = np.zeros(n_items, dtype=np.int64)
+    for es in edge_sets:
+        deg += np.bincount(es.items, minlength=n_items)
+    return deg
+
+
+def user_pos_counts(n_users: int, es: EdgeSet) -> np.ndarray:
+    """Per-user positive ROW count of a split, the reference recall
+    denominator (``metrics/accurate.py:31``)."""
+    return np.bincount(es.users, minlength=n_users)
+
+
+def users_present(n_users: int, es: EdgeSet) -> np.ndarray:
+    """Users with >= 1 interaction in the split: the reference metrics
+    average over the split's pos-dict keys only (``metrics/accurate.py:26``)."""
+    return user_pos_counts(n_users, es) > 0
+
+
+def _inv_sqrt_degrees(n_users: int, n_items: int, es: EdgeSet):
+    """(R f64 0/1, du^-1/2, di^-1/2) in f64, 0 for zero degrees (gcn_norm's
+    deg_inv_sqrt masks inf to 0)."""
+    R = interaction_matrix(n_users, n_items, es, dtype=np.float64)
+    du = R.sum(axis=1)
+    di = R.sum(axis=0)
+    with np.errstate(divide="ignore"):
+        inv_su = np.where(du > 0, 1.0 / np.sqrt(du), 0.0)
+        inv_si = np.where(di > 0, 1.0 / np.sqrt(di), 0.0)
+    return R, inv_su, inv_si
+
+
+def normalized_bipartite(n_users: int, n_items: int, es: EdgeSet, dtype=np.float32) -> np.ndarray:
+    """Symmetric-normalized bipartite incidence R_hat = D_u^-1/2 R D_i^-1/2,
+    dense: torch-geometric ``gcn_norm(add_self_loops=False)`` on the joint
+    adjacency restricted to its user-item block (``model/LightGCN/model.py:53``).
+    Computed in f64, then cast to ``dtype``."""
+    R, inv_su, inv_si = _inv_sqrt_degrees(n_users, n_items, es)
+    return (R * inv_su[:, None] * inv_si[None, :]).astype(dtype)
+
+
+def binary_incidence_factors(n_users: int, n_items: int, es: EdgeSet):
+    """Factored ``normalized_bipartite``: (R int8 0/1, du^-1/2 f32,
+    di^-1/2 f32) with R_hat == diag(du^-1/2) R diag(di^-1/2). The int8
+    incidence is what the dual kernel streams (``ops/cuda/propagation``)."""
+    R, inv_su, inv_si = _inv_sqrt_degrees(n_users, n_items, es)
+    return R.astype(np.int8), inv_su.astype(np.float32), inv_si.astype(np.float32)

@@ -1,21 +1,22 @@
-"""Model dispatch: the checkpoint a model serves from.
+"""Model dispatch: load the cached checkpoint, else train.
 
-Port of ``_embedding_model_name`` and the load half of
-``get_or_train_params`` in ``lgcnhs_tpu/models/recommenders.py`` (reference
-``model/LightGCN/recommend.py:148-154``). Training is not ported yet, so a
-missing or mismatched checkpoint raises instead of training.
+Port of ``_embedding_model_name`` and ``get_or_train_params`` in
+``lgcnhs_tpu/models/recommenders.py`` (reference
+``model/LightGCN/recommend.py:148-154``).
 """
 from __future__ import annotations
 
 import os
+from typing import Optional
 
+import numpy as np
 import torch
 
 from lgcnhs_tpu_torch.config import Config
 from lgcnhs_tpu_torch.data.graph import InteractionGraph
 from lgcnhs_tpu_torch.models.lightgcn import LightGCNParams
 from lgcnhs_tpu_torch.runtime.logging import get_logger
-from lgcnhs_tpu_torch.train.trainer import load_checkpoint
+from lgcnhs_tpu_torch.train.trainer import load_checkpoint, train_lightgcn
 
 
 def _embedding_model_name(model: str) -> str:
@@ -29,21 +30,24 @@ def checkpoint_path(cfg: Config) -> str:
 
 
 def get_or_train_params(
-    graph: InteractionGraph, cfg: Config, device: torch.device | str
+    graph: InteractionGraph,
+    cfg: Config,
+    device: torch.device | str,
+    user_features: Optional[np.ndarray] = None,
+    item_features: Optional[np.ndarray] = None,
 ) -> LightGCNParams:
-    """The cached checkpoint's tables on ``device``."""
+    """The cached checkpoint's tables on ``device``; when it is missing or
+    its shape does not match the graph, the embedding model is trained on
+    ``device`` (with the side features for LightGCNOpti only) and its
+    checkpoint written."""
+    log = get_logger()
+    name = _embedding_model_name(cfg.model)
     ckpt = checkpoint_path(cfg)
     params = load_checkpoint(ckpt, device)
-    if params is None:
-        raise FileNotFoundError(
-            f"no checkpoint at {ckpt}; training is not ported yet, so serving "
-            "needs an npz checkpoint (keys user_emb, item_emb)"
-        )
-    if (params.user_emb.shape[0], params.item_emb.shape[0]) != (graph.n_users, graph.n_items):
-        raise ValueError(
-            f"checkpoint {ckpt} holds {params.user_emb.shape[0]} users x "
-            f"{params.item_emb.shape[0]} items, the graph {graph.n_users} x "
-            f"{graph.n_items}; training is not ported yet"
-        )
-    get_logger().info("loaded cached %s checkpoint: %s", _embedding_model_name(cfg.model), ckpt)
-    return params
+    if params is not None:
+        if (params.user_emb.shape[0], params.item_emb.shape[0]) == (graph.n_users, graph.n_items):
+            log.info("loaded cached %s checkpoint: %s", name, ckpt)
+            return params
+        log.info("cached checkpoint shape mismatch, retraining")
+    feats = (user_features, item_features) if name == "LightGCNOpti" else (None, None)
+    return train_lightgcn(graph, cfg, *feats, device=device).params

@@ -24,7 +24,7 @@ import torch
 
 SRC_DIR = Path(__file__).resolve().parent
 BUILD_DIR = SRC_DIR / "_build"
-SOURCES = ("retrieval", "fusion_serve")
+SOURCES = ("retrieval", "fusion_serve", "propagation")
 NVCC_FLAGS = (
     "-O3",
     "-std=c++17",

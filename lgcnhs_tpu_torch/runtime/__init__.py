@@ -1,1 +1,1 @@
-"""Logging and stage timing."""
+"""Logging, stage timing and device resolution."""

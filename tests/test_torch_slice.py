@@ -92,9 +92,15 @@ def test_serve_exact_takes_the_plain_chain(tmp_path):
 
 
 def test_missing_checkpoint_raises(tmp_path):
-    with pytest.raises(FileNotFoundError, match="training is not ported"):
+    """A missing checkpoint trains first; on a graph that needs a training
+    path not ported yet (COO: density below compute.dense_threshold) that
+    raises with its ROADMAP pointer, and nothing is served."""
+    sparse = ["--dataset", "synthetic", "--env", "dev", "--users", "4000",
+              "--items", "20000", "--interactions", "3000", "--k", "10"]
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 8"):
         t_retrieve.main(["--device", "cpu", "--model", "LightGCN",
-                         "--workdir", str(tmp_path), *SIZE])
+                         "--workdir", str(tmp_path), *sparse])
+    assert not os.path.exists(tmp_path / "synthetic" / "recommend" / "retrieval_LightGCN_10.npy")
 
 
 def test_init_lightgcn_opti_with_projection_from_jax_keys():
