@@ -21,24 +21,38 @@ neither JAX nor ``lgcnhs_tpu``. Phases:
    and backward: bitwise equal on dyadic inputs, within 1e-5 of each
    output's scale on continuous ones (f32 sums in another order; a bf16
    gradient also within one bf16 rounding), two launches bitwise equal;
-   and on ragged shapes (U, I off the tiles, I below a warp, D 8/64/128).
+   and on ragged shapes (U, I off the tiles and off 16, I below a warp,
+   D 3/8/20/64/128, a skewed incidence); its shared-memory guard against
+   the launcher's own figure, and the streaming kernel's too. Streaming
+   retrieval also at k=1/100/200/1000/3000 over catalogs off its 128-item
+   steps (past a block's shared memory the running lists go to device
+   memory at k=1000, the merge lists too at k=3000), at the default and the
+   narrowest survivor slack, with
+   the sub-sentinel users and a second launch bitwise equal to the
+   first, and at k=1000 over 50k items.
 4. The serving slice end to end through ``lgcnhs_tpu_torch.cli.retrieve``
    (ML-1M scale, ``--env prod``, k=100) with a seeded LightGCNOpti
    checkpoint: SpreadLightGCNOpti, LightGCNOpti, and LightGCNOpti over a
    catalog beyond the one-shot kernel's cap. Then the training slice: the
    same CLI on an empty workdir trains LightGCNOpti for 1000 epochs through
    the ``dual_matmul`` kernel (6 launches a step) and serves
-   SpreadLightGCNOpti from the checkpoint it wrote. Launch counts are zeroed
-   just before each path and read just after; every output is checked
+   SpreadLightGCNOpti from the checkpoint it wrote. Launch counts (and the
+   counts of the second kernels: the split-K sum of ``dual_matmul``, the
+   streaming parts' merge) are zeroed just before each path and read just
+   after; the served 49,410-item catalog is also retrieved at k=1000
+   against the twin. Every output is checked
    against the plain chain, the training history for finite values and a
    falling loss. Last, 20 epochs on the kernel route and on the twin route
    from one seed, compared within the stated tolerance.
 5. Timings at the main path's shapes: kernel, plain twin, and the nearest
    library composition (torch.matmul + torch.topk, two bf16 torch.matmul
    for ``dual_matmul``; no single PyTorch call computes these functions, so
-   ``library_ms`` is null), medians of CUDA-event timings; the train step's
-   ms and examples/s over a synchronized steady window, and its device time
-   by kernel from ``torch.profiler``.
+   ``library_ms`` is null), medians of CUDA-event timings; for the two
+   redesigned kernels (``dual_matmul``, streaming retrieval) also their
+   device ms and their composition's from ``torch.profiler`` and their
+   share of the bound; the train step's ms and examples/s over a
+   synchronized steady window, its device-busy ms and idle share, and its
+   device time by kernel from ``torch.profiler``.
 
 Prints one PASS/FAIL line per check, then (all passed) the kernel JSON line,
 the ``nvidia-smi`` name/power-limit line, and the final
@@ -271,6 +285,30 @@ def main() -> int:
             got = rt.streaming_topk_retrieval(ue, ie, seen, max(ks), item_tile=128)
             compare(torch, check, f"streaming retrieval {label} tile=128 k={max(ks)}", got, want)
 
+    def streaming_checks(U, I, D, ks):
+        """The streaming kernel at k 1/100/200 over a catalog that is not a
+        whole number of 128-item steps, with the sub-sentinel users, the
+        default and the narrowest survivor slack, and a second launch
+        bitwise equal to the first."""
+        ue, ie = dyadic((U, D)), dyadic((I, D))
+        seen = gen.random((U, I)) < 0.05
+        sub_sentinel(ue, ie, seen)
+        ue, ie, seen = cuda(ue), cuda(ie), cuda(seen)
+        for k in ks:
+            want = rt.fused_topk_retrieval_ref(ue, ie, seen, k)
+            for tile in (None, 1):
+                label = f"streaming retrieval {U}x{I}x{D} k={k} item_tile={tile}"
+                got = rt.streaming_topk_retrieval(ue, ie, seen, k, item_tile=tile)
+                again = rt.streaming_topk_retrieval(ue, ie, seen, k, item_tile=tile)
+                torch.cuda.synchronize()
+                compare(torch, check, label, got, want)
+                check(f"{label}: second launch bitwise equal",
+                      torch.equal(got[0], again[0]) and torch.equal(got[1], again[1]))
+                sub = got[0][:2]
+                check(f"{label}: users scoring below -1024 everywhere get real ids",
+                      bool(((sub >= 0) & (sub < I)).all())
+                      and got[0][1, :3].tolist() == [5, 17, 250][:min(k, 3)])
+
     def serve_checks(U, I, D, ks, label, A_real=None):
         for exact in (True, False):
             ue = dyadic((U, D)) if exact else normal((U, D), 0.3)
@@ -356,13 +394,36 @@ def main() -> int:
                 dual_case(f"{U}x{I}x64 {names[rdt]}/{names[edt]} "
                           f"{'dyadic' if exact else 'continuous'}", R,
                           cuda(vals((I, 64))).to(edt), cuda(vals((U, 64))).to(edt), exact)
-        for U2, I2, D2 in ((37, 300, 8), (13, 20, 64), (70, 1000, 128), (500, 31, 64), (1, 1, 8)):
-            mask = cuda(gen.random((U2, I2)) < 0.3)
+        # ragged shapes: U, I off the 64-tile and off 16, I below a warp,
+        # D 3/20 (bf16 rows not a whole number of 16-byte copies) and 8/64/128;
+        # the last, skewed: hot items every user has and a user with every item
+        for U2, I2, D2 in ((37, 300, 8), (13, 20, 64), (70, 1000, 128), (500, 31, 64), (1, 1, 8),
+                           (130, 333, 3), (200, 1001, 20), (700, 150, 64)):
+            mask = gen.random((U2, I2)) < 0.3
+            if (U2, I2) == (700, 150):
+                mask[:, :5] = True
+                mask[3] = True
+            mask = cuda(mask)
             for rdt, edt in prop.PAIRS:
                 R = mask.to(torch.int8) if rdt == torch.int8 else \
                     (mask.float() * cuda(dyadic((U2, I2)))).to(rdt)
                 dual_case(f"edge U={U2} I={I2} D={D2} {names[rdt]}/{names[edt]}", R,
                           cuda(dyadic((I2, D2))).to(edt), cuda(dyadic((U2, D2))).to(edt), True)
+        # R as a view of a wider buffer whose entries past column I are junk
+        # (NaN for bf16, negative bytes for int8): read in place, never counted
+        U2, I2 = 130, 333
+        mask = cuda(gen.random((U2, I2)) < 0.3)
+        for rdt, junk in ((torch.bfloat16, float("nan")), (torch.int8, -77)):
+            R = mask.to(rdt) if rdt == torch.int8 else \
+                (mask.float() * cuda(dyadic((U2, I2)))).to(rdt)
+            wide = torch.full((U2, 352), junk, dtype=rdt, device=R.device)
+            wide[:, :I2] = R
+            view = wide[:, :I2]
+            Xv, Yv = (cuda(dyadic((n, 20))).to(torch.bfloat16) for n in (I2, U2))
+            got, want = prop.dual_matmul(view, Xv, Yv), prop.dual_matmul_ref(R, Xv, Yv)
+            torch.cuda.synchronize()
+            check(f"dual_matmul {names[rdt]} R view with junk past column I == twin (bitwise)",
+                  prop.rows_aligned(view) and all(torch.equal(a, b) for a, b in zip(got, want)))
 
     print("[phase 3] kernels against their twins", flush=True)
     check.guard("edge shapes", edge_checks)
@@ -379,13 +440,37 @@ def main() -> int:
     check("ML-1M fused serve fits a block", fs.fits_smem_serve(graph.n_items, 64, limit))
     check("dual_matmul guard: D=64 and D=128 fit, D=129 does not",
           prop.fits_smem_dual(64, limit) and prop.fits_smem_dual(128, limit)
-          and not prop.fits_smem_dual(129, limit))
+          and not prop.fits_smem_dual(129, limit) and prop.fits_dual(64, dev)
+          and prop.fits_dual(128, dev) and not prop.fits_dual(129, dev))
+    plib = build.load_library("propagation")
+    smem_pairs = [(r, e, d) for r, e in prop.PAIRS for d in (3, 20, 64, 128)]
+    mism = [(str(r), str(e), d, prop.smem_bytes(d, r, e),
+             plib.dual_matmul_smem_bytes(prop._CODES[r], prop._CODES[e], d))
+            for r, e, d in smem_pairs
+            if prop.smem_bytes(d, r, e) != plib.dual_matmul_smem_bytes(prop._CODES[r],
+                                                                        prop._CODES[e], d)]
+    check("dual_matmul guard: smem_bytes equals the launcher's shared memory", not mism,
+          f"{mism}")
+    rlib = rt._stream_launcher()[0]
+    mism = [(k, t, rt.stream_smem_bytes(k, t), rlib.streaming_smem_bytes(k, t))
+            for k in (1, 100, 200, 484, 485, 1000) for t in (1, rt.STREAM_TILE, 128)
+            if rt.stream_smem_bytes(k, t) != rlib.streaming_smem_bytes(k, t)]
+    check("streaming guard: stream_smem_bytes equals the launcher's shared memory",
+          not mism, f"{mism}")
+    ws_bytes = [rlib.streaming_workspace_bytes(k, rt.STREAM_TILE, limit)
+                for k in (484, 485, 2424, 2425)]
+    check("streaming at a 16-entry tile: long lists in shared memory to k=484, then the "
+          "running lists in device memory, past k=2424 the merge lists too",
+          ws_bytes == [0, 4 * 32 * 2 * 485, 4 * 32 * 2 * 2424, 4 * 40 * 2 * 2425], f"{ws_bytes}")
     check.guard("dual_matmul", dual_checks, R8_slice)
     check.guard("retrieval 384x896", retrieval_checks, 384, 896, 64, (10, 100), "384x896")
     check.guard("retrieval slice", retrieval_checks, graph.n_users, graph.n_items, 64,
                 (10, 100), f"{graph.n_users}x{graph.n_items}x64")
-    check.guard("streaming 50k", retrieval_checks, 384, BIG_CATALOG, 64, (100,),
+    check.guard("streaming 50k", retrieval_checks, 384, BIG_CATALOG, 64, (100, 1000),
                 f"384x{BIG_CATALOG}", True)
+    check.guard("streaming k 1/100/200/1000", streaming_checks, 300, 1111, 64,
+                (1, 100, 200, 1000))
+    check.guard("streaming k=3000", streaming_checks, 40, 3500, 16, (3000,))
     check.guard("streaming D=1024", retrieval_checks, 128, 16_384, 1024, (100,),
                 "128x16384 D=1024", True)
     check.guard("serve 384x896", serve_checks, 384, 896, 64, (10, 100), "384x896")
@@ -420,6 +505,7 @@ def main() -> int:
                "fused_lgcnhs_serve": fs.fused_lgcnhs_serve}
     for fn in kernels.values():
         fn.launches = 0
+    rt.streaming_topk_retrieval.merge_launches = 0
     outputs = []
     for model, args in runs:
         t0 = time.perf_counter()
@@ -428,9 +514,12 @@ def main() -> int:
         print(f"[phase 4] {model} {args[1]}: {rec.shape} in {time.perf_counter() - t0:.2f} s",
               flush=True)
     launches = {name: fn.launches for name, fn in kernels.items()}
-    print(f"[phase 4] launches {launches}", flush=True)
+    merge_launches = rt.streaming_topk_retrieval.merge_launches
+    print(f"[phase 4] launches {launches}, streaming merge {merge_launches}", flush=True)
     for name, n in launches.items():
         check(f"main path launched {name}", n > 0, f"{n} launches")
+    check("main path launched the streaming merge over the catalog parts",
+          merge_launches > 0, f"{merge_launches} launches")
 
     timing_inputs = {}
 
@@ -468,6 +557,25 @@ def main() -> int:
                       else "streaming_topk_retrieval" if model == "LightGCNOpti"
                       else "fused_lgcnhs_serve")
 
+    def streaming_large_k():
+        """The served 49,410-item catalog at k=1000: each user's lists past
+        a block's shared memory, in the device-memory workspace. Returns
+        the call's ms (CUDA events)."""
+        ue, ie, seen, _ = timing_inputs["streaming_topk_retrieval"]
+        k = 1000
+        got = rt.streaming_topk_retrieval(ue, ie, seen, k)
+        want = rt.fused_topk_retrieval_ref(ue, ie, seen, k)
+        torch.cuda.synchronize()
+        label = f"streaming retrieval {ue.shape[0]}x{ie.shape[0]}x{ue.shape[1]} k={k}"
+        check(f"{label} shape and id range", tuple(got[0].shape) == (ue.shape[0], k)
+              and bool(((got[0] >= 0) & (got[0] < ie.shape[0])).all()))
+        compare(torch, check, label, got, want, retrieval_ref64(ue, ie, seen))
+        del want
+        return median_ms(torch, lambda: rt.streaming_topk_retrieval(ue, ie, seen, k), 3)
+
+    large_k_ms = check.guard("streaming k=1000 on the served catalog", streaming_large_k)
+    torch.cuda.empty_cache()
+
     # the training slice: an empty workdir, so cli/retrieve trains first
     print(f"[phase 4] cli/retrieve trains LightGCNOpti ({TRAIN_EPOCHS} epochs) and serves",
           flush=True)
@@ -475,16 +583,20 @@ def main() -> int:
     path_kernels = {**kernels, "dual_matmul": prop.dual_matmul}
     for fn in path_kernels.values():
         fn.launches = 0
+    prop.dual_matmul.reduce_launches = 0
     t0 = time.perf_counter()
     rec = retrieve.main(["--device", "cuda", "--workdir", train_work, "--model",
                          "SpreadLightGCNOpti", *ml1m, "--epochs", str(TRAIN_EPOCHS)])
     torch.cuda.synchronize()
     train_serve_s = time.perf_counter() - t0
     train_launches = {name: fn.launches for name, fn in path_kernels.items()}
-    print(f"[phase 4] train + serve in {train_serve_s:.2f} s; launches {train_launches}",
-          flush=True)
+    reduce_launches = prop.dual_matmul.reduce_launches
+    print(f"[phase 4] train + serve in {train_serve_s:.2f} s; launches {train_launches}, "
+          f"dual_matmul split-K sum {reduce_launches}", flush=True)
     check(f"training path launched dual_matmul 6 x {TRAIN_EPOCHS}",
           train_launches["dual_matmul"] == 6 * TRAIN_EPOCHS, f"{train_launches['dual_matmul']}")
+    check("training path launched dual_matmul's split-K sum with each call",
+          reduce_launches == train_launches["dual_matmul"], f"{reduce_launches}")
     check("training path launched fused_lgcnhs_serve", train_launches["fused_lgcnhs_serve"] > 0)
     cfg_t = tcfg.load_config(env="prod", dataset="movielens1m", model="SpreadLightGCNOpti",
                              workdir=train_work, overrides={"hparams.epochs": TRAIN_EPOCHS})
@@ -555,6 +667,33 @@ def main() -> int:
         "fused_lgcnhs_serve": ("lgcnhs_tpu_torch/ops/cuda/fusion_serve.cu",
                                "lgcnhs_tpu/ops/pallas/fusion_serve.py:120"),
     }
+    def device_ms_by_kernel(fn, n):
+        """{kernel name: device ms per call of fn} from torch.profiler over
+        n calls, and the window's wall ms; ({}, None) when it traces no
+        device time."""
+        from torch.profiler import ProfilerActivity, profile
+
+        fn()
+        torch.cuda.synchronize()
+        try:
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                for _ in range(n):
+                    fn()
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3 / n
+        except Exception:  # no device trace: reported as not measured
+            traceback.print_exc()
+            return {}, None
+        by_kernel = {}
+        for ev in prof.key_averages():
+            dev_us = getattr(ev, "self_device_time_total", None)
+            if dev_us is None:
+                dev_us = getattr(ev, "self_cuda_time_total", 0.0)
+            if dev_us and getattr(ev, "device_type", None) == torch.autograd.DeviceType.CUDA:
+                by_kernel[ev.key] = dev_us / 1e3 / n
+        return by_kernel, wall_ms
+
     for name, fn in kernels.items():
         inputs = timing_inputs[name]
         twin = fs.fused_lgcnhs_serve_ref if name == "fused_lgcnhs_serve" \
@@ -595,63 +734,50 @@ def main() -> int:
                "launches": launches[name], "max_abs_err": max_abs_err, "ms": ms,
                "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
                "library_ms": None, "matmul_topk_ms": composition_ms}
+        extra = ""
+        if name == "streaming_topk_retrieval":  # redesigned: device time from the profiler
+            row.update(merge_launches=merge_launches, k1000_ms=large_k_ms)
+            by_kernel, _ = device_ms_by_kernel(lambda: fn(*inputs), 5)
+            comp_kernels, _ = device_ms_by_kernel(composition, 5)
+            dev_ms = sum(v for n_, v in by_kernel.items() if "streaming_" in n_) or None
+            comp_dev = sum(comp_kernels.values()) or None
+            row.update(device_ms=dev_ms, matmul_topk_device_ms=comp_dev,
+                       bound_share=bound_ms / dev_ms if dev_ms else None)
+            extra = (f", device {dev_ms} ms ({row['bound_share']} of the bound; "
+                     f"matmul+topk device {comp_dev}), kernels {by_kernel}; "
+                     f"{merge_launches} merge launches; k=1000 {large_k_ms} ms")
         print(f"[phase 5] {name} U={U} I={I} D={D} k={k}: {ms:.4f} ms (twin {plain_ms:.4f}, "
               f"matmul+topk {composition_ms:.4f}, bound {bound_ms:.4f} by {bound_by}) "
-              f"max_abs_err {max_abs_err:.3e} [{smi}]", flush=True)
+              f"max_abs_err {max_abs_err:.3e}{extra} [{smi}]", flush=True)
         report.append(row)
 
-    def device_ms_by_kernel(fn, n):
-        """{kernel name: device ms per call of fn} from torch.profiler over
-        n calls, and the window's wall ms; ({}, None) when it traces no
-        device time."""
-        from torch.profiler import ProfilerActivity, profile
-
-        fn()
-        torch.cuda.synchronize()
-        try:
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                t0 = time.perf_counter()
-                for _ in range(n):
-                    fn()
-                torch.cuda.synchronize()
-                wall_ms = (time.perf_counter() - t0) * 1e3 / n
-        except Exception:  # no device trace: reported as not measured
-            traceback.print_exc()
-            return {}, None
-        by_kernel = {}
-        for ev in prof.key_averages():
-            dev_us = getattr(ev, "self_device_time_total", None)
-            if dev_us is None:
-                dev_us = getattr(ev, "self_cuda_time_total", 0.0)
-            if dev_us and getattr(ev, "device_type", None) == torch.autograd.DeviceType.CUDA:
-                by_kernel[ev.key] = dev_us / 1e3 / n
-        return by_kernel, wall_ms
-
     # dual_matmul at the training step's shapes: the slice's int8 incidence
-    # and the bf16 layer-0 operands of the trained tables
+    # (padded once per run, as the trainer does) and the bf16 layer-0
+    # operands of the trained tables
     U, I, D = graph.n_users, graph.n_items, 64
     X = (di_slice[:, None] * params_t.item_emb).to(torch.bfloat16)
     Y = (du_slice[:, None] * params_t.user_emb).to(torch.bfloat16)
-    # the transpose is built once per training run: timed on its own, not
-    # in the kernel's ms
-    RT_slice = prop.transpose_for_dual(R8_slice)
-    got = prop.dual_matmul(R8_slice, X, Y, RT_slice)
+    R8p = prop.pad_for_dual(R8_slice)
+    got = prop.dual_matmul(R8p, X, Y)
     want = prop.dual_matmul_ref(R8_slice, X, Y)
     max_abs_err = max((a - b).abs().max().item() for a, b in zip(got, want))
     reps = 20
-    ms = median_ms(torch, lambda: prop.dual_matmul(R8_slice, X, Y, RT_slice), reps)
-    transpose_ms = median_ms(torch, lambda: prop.transpose_for_dual(R8_slice), reps)
+    ms = median_ms(torch, lambda: prop.dual_matmul(R8p, X, Y), reps)
+    pad_ms = median_ms(torch, lambda: prop.pad_for_dual(R8_slice), reps)
     Xg, Yg = X.detach().requires_grad_(True), Y.detach().requires_grad_(True)
-    out = prop.dual_matmul(R8_slice, Xg, Yg, RT_slice)
+    out = prop.dual_matmul(R8p, Xg, Yg)
     cot = (torch.randn_like(out[0]), torch.randn_like(out[1]))
     bwd_ms = median_ms(torch, lambda: torch.autograd.grad(out, (Xg, Yg), cot, retain_graph=True),
                        reps)
     plain_ms = median_ms(torch, lambda: prop.dual_matmul_ref(R8_slice, X, Y), reps)
     Rb = R8_slice.to(torch.bfloat16)
     matmul_ms = median_ms(torch, lambda: (torch.matmul(Rb, X), torch.matmul(Rb.T, Y)), reps)
+    matmul_dev, _ = device_ms_by_kernel(lambda: (torch.matmul(Rb, X), torch.matmul(Rb.T, Y)),
+                                        20)
     del Rb
-    dual_dev, _ = device_ms_by_kernel(lambda: prop.dual_matmul(R8_slice, X, Y, RT_slice), 20)
+    dual_dev, _ = device_ms_by_kernel(lambda: prop.dual_matmul(R8p, X, Y), 20)
     dual_device_ms = sum(dual_dev.values()) if dual_dev else None
+    matmul_device_ms = sum(matmul_dev.values()) if matmul_dev else None
     nnz = int(R8_slice.sum(dtype=torch.int64))
     deg_u = R8_slice.sum(dim=1, dtype=torch.int64)
     deg_i = R8_slice.sum(dim=0, dtype=torch.int64)
@@ -660,19 +786,23 @@ def main() -> int:
     # each input read once (R int8, X and Y bf16), each output written once (f32)
     nbytes = U * I + 2 * (I * D + U * D) + 4 * (U * D + I * D)
     bound_ms, bound_by = bound(nbytes, 4 * nnz * D, PEAK_BF16_FLOP_PER_S)
+    share = f"{bound_ms / dual_device_ms:.3f}" if dual_device_ms else "not measured"
     report.append({
         "name": "dual_matmul", "route": "cuda",
         "source": "lgcnhs_tpu_torch/ops/cuda/propagation.cu",
         "replaces": "lgcnhs_tpu/ops/pallas/propagation.py:164",
-        "launches": train_launches["dual_matmul"], "max_abs_err": max_abs_err, "ms": ms,
+        "launches": train_launches["dual_matmul"], "reduce_launches": reduce_launches,
+        "max_abs_err": max_abs_err, "ms": ms,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": None, "matmul_ms": matmul_ms, "backward_ms": bwd_ms,
-        "device_ms": dual_device_ms, "transpose_ms": transpose_ms,
+        "library_ms": None, "matmul_ms": matmul_ms, "matmul_device_ms": matmul_device_ms,
+        "backward_ms": bwd_ms, "device_ms": dual_device_ms, "pad_ms": pad_ms,
+        "bound_share": bound_ms / dual_device_ms if dual_device_ms else None,
     })
+    dual_row = report[-1]
     print(f"[phase 5] dual_matmul U={U} I={I} D={D} nnz={nnz} int8/bf16: forward {ms:.4f} ms "
-          f"(device {dual_device_ms}), backward {bwd_ms:.4f} ms, transpose {transpose_ms:.4f} ms "
-          f"once per run, twin {plain_ms:.4f}, "
-          f"two bf16 matmuls {matmul_ms:.4f}, bound {bound_ms:.4f} by {bound_by}, "
+          f"(device {dual_device_ms}, {share} of the bound), backward {bwd_ms:.4f} ms, "
+          f"row padding {pad_ms:.4f} ms once per run, twin {plain_ms:.4f}, two bf16 matmuls "
+          f"{matmul_ms:.4f} (device {matmul_device_ms}), bound {bound_ms:.4f} by {bound_by}, "
           f"max_abs_err {max_abs_err:.3e}; {skew}; device ms by kernel {dual_dev} [{smi}]",
           flush=True)
 
@@ -684,7 +814,7 @@ def main() -> int:
     step = trainer.make_train_step(trainer.make_optimizer(hp, p0), hp, I,
                                    bf16_matmul=True, use_kernel=True)
     te = unique_edges(graph.train)
-    step_args = ((R8_slice, du_slice, di_slice, RT_slice),
+    step_args = ((R8p, du_slice, di_slice),
                  torch.from_numpy(te.users.astype(np.int64)).to(dev),
                  torch.from_numpy(te.items.astype(np.int64)).to(dev),
                  cuda(pos_bool_matrix(U, I, graph.train)))
@@ -709,6 +839,8 @@ def main() -> int:
     dual_step_ms = sum(v for k, v in step_dev.items() if "dual_" in k)
     top = sorted(step_dev.items(), key=lambda kv: -kv[1])[:8]
     idle = f"{1 - busy_ms / step_wall:.3f}" if step_dev and step_wall else "not measured"
+    dual_row.update(step_ms=step_ms, step_device_busy_ms=busy_ms, step_idle_share=idle,
+                    step_dual_device_ms=dual_step_ms)
     print(f"[phase 5] train step (int8 dual_matmul route, B={hp.batch_size}): {step_ms:.4f} ms, "
           f"{hp.batch_size / step_ms * 1e3:.1f} examples/s over {n_steps} steps; profiled "
           f"window {step_wall} ms/step, device busy {busy_ms:.4f} ms/step "

@@ -6,26 +6,51 @@
 //   streaming_topk_retrieval  (item tiles with a running top-k; :320)
 //
 // What bounds it: the f32 dot products, U*I*D FMAs on the CUDA cores (no
-// tensor cores: the contract is full f32), plus k selection passes per
-// user. Bytes are small: the (U, I) seen mask is the largest input.
+// tensor cores: the contract is full f32): at the streaming cell (6040 x
+// 49,410 x 64) 38 GFLOP, 0.57 ms at 67 TFLOP/s. Bytes are small beside it
+// (the (U, I) seen mask is the largest input, 298 MB there: 0.09 ms).
 //
-// Design. The TPU kernels keep a (128, I_pad) f32 score block in VMEM; a
-// Hopper block has at most 227 KB of shared memory, so a block here owns
-// kRows users and keeps only their score rows (kRows * I * 4 bytes) in
+// One-shot design. The TPU kernels keep a (128, I_pad) f32 score block in
+// VMEM; a Hopper block has at most 227 KB of shared memory, so a block here
+// owns kRows users and keeps only their score rows (kRows * I * 4 bytes) in
 // dynamic shared memory. Threads walk the items; the item table arrives
 // transposed (D, I) so that neighbouring threads read neighbouring items,
 // and each loaded item value serves all kRows users. Selection then runs
-// one warp per user (common.cuh). The streaming kernel keeps a (kRows,
-// tile) score block plus a running (value, id) top-k per user, so its shared memory does not grow with the catalog. Each tile is
-// filtered against the running k-th entry (whatever ranks after it cannot
-// reach the top k); the best min(survivors, k) are selected in rank order
-// and merged with the running list by rank (binary search), so after the
-// first tile a tile costs about as many selection steps as it has
-// survivors, not k.
+// one warp per user (common.cuh).
+//
+// Streaming design (no catalog cap). A block owns 32 users and one part of
+// the catalog, and walks it in steps of 128 items:
+// - Scores: a register tile. Each thread computes 4 users x 4 items, each
+//   score one fmaf chain over ascending d (as user_item_dots, so the
+//   scores are bitwise the one-shot kernel's), from 16-deep slices of the
+//   transposed user and item tables staged in shared memory by cp.async,
+//   double-buffered: per d a thread reads one broadcast float4 of users and
+//   one float4 of items for 16 FMAs, and a block reads each item once per
+//   32 users (the earlier kernel: once per 8).
+// - Selection: each user keeps its running top-k (order keys and ids,
+//   ranked) and the running k-th entry as a threshold. The score epilogue
+//   drops, in registers, every score that does not rank before the
+//   threshold (the seen flags are read while the products run); only
+//   survivors are appended (shared-memory counter) to the user's survivor
+//   area, of one step plus a slack of item_tile entries. A user's
+//   survivors are folded in (ranked among themselves, then a rank merge)
+//   only when the area could overflow in the next step, and once at the
+//   end. A user's scores, survivors and folds all belong to one warp, so
+//   selection needs warp barriers only: a fold holds up its own warp, not
+//   the block. After the first ~k items the threshold is high and almost
+//   nothing survives, so selection costs about survivors x log k per user,
+//   not a pass per tile. The slack grows with k (ops/cuda/retrieval.py
+//   pick_stream_tile), and the long lists of a large k that do not fit a
+//   block's shared memory go to a workspace in device memory (StreamSmem),
+//   so any k runs.
+// - Filling the card: 6040 users make 189 blocks of 32; the catalog is
+//   split into parts (ops/cuda/retrieval.py stream_parts) so that the
+//   blocks spread evenly over the SMs, two resident on each, and a second
+//   kernel merges each user's part lists (one warp a user) in rank order.
 //
 // Mask: seen items score the finite -1024 sentinel (they can still be
 // emitted when every unseen score lies below it). Items past I are never
-// visited, so no padding state exists.
+// emitted, so no padding state exists.
 #include "common.cuh"
 
 namespace {
@@ -67,16 +92,32 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-static_assert(kRows == kWarps, "streaming: warp w owns user w of the block");
+// -- streaming: no catalog cap ---------------------------------------------
 
-// Rank of x among the m entries of a list sorted in rank order: how many
-// of them rank before x.
-__device__ __forceinline__ int rank_in(const float* v, const int* id, int m,
-                                       int xkey, int xid) {
+constexpr int kSU = 32;     // users per streaming block; ops/cuda/retrieval.py STREAM_USERS
+constexpr int kStep = 128;  // items scored per step; STREAM_STEP
+constexpr int kDC = 16;     // depth of one staged operand slice
+constexpr int kSlices = 3;  // staged slices in flight
+static_assert(kSU == 4 * kWarps, "a warp scores and selects for 4 users");
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+// 16 bytes global -> shared; zero-filled (src not read) when !valid.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+// Rank of (xkey, xid) among the m entries of a list sorted in rank order:
+// how many of them rank before it.
+__device__ __forceinline__ int rank_in(const int* key, const int* id, int m, int xkey,
+                                       int xid) {
   int lo = 0, hi = m;
   while (lo < hi) {
     const int mid = (lo + hi) >> 1;
-    if (ranks_before(order_key(v[mid]), id[mid], xkey, xid))
+    if (ranks_before(key[mid], id[mid], xkey, xid))
       lo = mid + 1;
     else
       hi = mid;
@@ -84,128 +125,317 @@ __device__ __forceinline__ int rank_in(const float* v, const int* id, int m,
   return lo;
 }
 
-__global__ void __launch_bounds__(kThreads)
-    streaming_topk_kernel(const float* __restrict__ u,
-                          const float* __restrict__ itT,
-                          const uint8_t* __restrict__ seen, int U, int I,
-                          int D, int k, int tile, int32_t* __restrict__ idx,
-                          float* __restrict__ vals) {
-  extern __shared__ float smem[];
-  float* us = smem;                          // (kRows, D)
-  float* tv = us + kRows * D;                // (kRows, tile) scores, then survivors
-  int* tid = (int*)(tv + kRows * tile);      // (kRows, tile) survivor ids
-  float* rv = (float*)(tid + kRows * tile);  // (kRows, k) running top-k values
-  int* ri = (int*)(rv + kRows * k);          // (kRows, k) running top-k ids
-  float* sv = (float*)(ri + kRows * k);      // (kRows, k) sorted best survivors
-  int* si = (int*)(sv + kRows * k);          // (kRows, k)
-  const int u0 = blockIdx.x * kRows;
-  const int nr = min(kRows, U - u0);
-  const int w = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
+// Where a block's long lists (below) live: all in shared memory; the
+// running lists in device memory; the merge lists there too.
+enum ListPlace : int { kListsShared = 0, kRunGlobal = 1, kAllGlobal = 2 };
 
-  load_user_rows<kRows>(us, u, u0, U, D);
-  __syncthreads();
+// Memory of one streaming block (ops/cuda/retrieval.py stream_smem_bytes).
+// In shared memory: kSlices operand slices, four counters a user, each
+// user's survivor area (kStep + slack entries: order keys, ids) and each
+// warp's ranked survivors of a fold (min(area, k)). The long lists, each
+// warp's merged list of a fold and each user's running top-k (k entries
+// each), follow in shared memory as far as they fit (ListPlace); the rest
+// live in the block's slice of a workspace in device memory. A fold reads
+// the running list in coalesced passes and searches only the ranked
+// survivors, so no search waits on device memory. No list is shared
+// between warps.
+struct StreamSmem {
+  float* us;  // [kSlices][kDC][kSU] user slices (d-major)
+  float* is;  // [kSlices][kDC][kStep] item slices
+  int *run_n, *new_n, *thr_key, *thr_id;
+  int *new_key, *new_id, *sc_key, *sc_id;  // always in shared memory
+  int *mg_key, *mg_id, *run_key, *run_id;  // the long lists
+  int sc_len;
+  __device__ StreamSmem(unsigned char* base, int* ws, int place, int k, int area) {
+    us = reinterpret_cast<float*>(base);
+    is = us + kSlices * kDC * kSU;
+    run_n = reinterpret_cast<int*>(is + kSlices * kDC * kStep);
+    new_n = run_n + kSU;
+    thr_key = new_n + kSU;
+    thr_id = thr_key + kSU;
+    sc_len = min(area, k);
+    new_key = thr_id + kSU;
+    new_id = new_key + kSU * area;
+    sc_key = new_id + kSU * area;
+    sc_id = sc_key + kWarps * sc_len;
+    int* shared_lists = sc_id + kWarps * sc_len;
+    mg_key = place == kAllGlobal ? ws : shared_lists;
+    mg_id = mg_key + kWarps * k;
+    run_key = place == kRunGlobal ? ws : mg_id + kWarps * k;
+    run_id = run_key + kSU * k;
+  }
+  // shared memory before the long lists
+  __host__ __device__ static size_t near_bytes(int k, int area) {
+    const int sc = area < k ? area : k;
+    return 4 * (kSlices * (size_t)kDC * (kSU + kStep) + 4 * kSU + (size_t)kSU * 2 * area +
+                (size_t)kWarps * 2 * sc);
+  }
+  // ints of the long lists in shared memory and in the workspace
+  __host__ __device__ static size_t shared_list_ints(int place, int k) {
+    return place == kListsShared ? (size_t)(kSU + kWarps) * 2 * k
+                                 : place == kRunGlobal ? (size_t)kWarps * 2 * k : 0;
+  }
+  __host__ __device__ static size_t ws_ints(int place, int k) {
+    return (size_t)(kSU + kWarps) * 2 * k - shared_list_ints(place, k);
+  }
+  static size_t smem_bytes(int place, int k, int area) {
+    return near_bytes(k, area) + 4 * shared_list_ints(place, k);
+  }
+  // the first place whose shared memory fits `limit`; -1 when none does
+  static int place(int k, int area, int limit) {
+    for (int p = kListsShared; p <= kAllGlobal; ++p)
+      if (smem_bytes(p, k, area) <= (size_t)limit) return p;
+    return -1;
+  }
+};
 
-  for (int base = 0; base < I; base += tile) {
-    const int tn = min(tile, I - base);
-    for (int jj = threadIdx.x; jj < tn; jj += blockDim.x) {
-      const int j = base + jj;
-      float acc[kRows];
-      user_item_dots<kRows>(us, itT, I, D, j, acc);
+// One warp folds user u's survivors into its running top-k, in two
+// counted steps rather than k selection passes:
+// - a survivor's rank among the survivors is the number that rank before
+//   it (ids are distinct, so ranks are too); the best min(survivors, k)
+//   land at their ranks in the warp's ranked list, now sorted;
+// - the merge of two sorted lists: running entry t goes to t + c(t), c(t)
+//   the ranked survivors before it (a binary search of that short list);
+//   survivors c(t) .. c(t+1) - 1 rank after entries 0..t and before t + 1,
+//   so they follow entry t directly. A lane takes entries lane, lane + 32,
+//   ...; entry t + 1's rank is lane + 1's (lane 31: lane 0's next), and
+//   each pass loads the entries of the pass after next, so a load's
+//   latency hides behind a pass. Into the warp's merge list, then copied
+//   back.
+__device__ void fold_survivors(StreamSmem& sm, int u, int k, int area) {
+  const unsigned full = 0xffffffffu;
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int m = sm.new_n[u];
+  if (m == 0) return;
+  const int* nk = sm.new_key + u * area;
+  const int* ni = sm.new_id + u * area;
+  int* rk = sm.run_key + u * k;
+  int* ri = sm.run_id + u * k;
+  int* sk = sm.sc_key + w * sm.sc_len;
+  int* si = sm.sc_id + w * sm.sc_len;
+  int* mk = sm.mg_key + w * k;
+  int* mi = sm.mg_id + w * k;
+  const int nr = sm.run_n[u], sel = min(m, k);  // m <= area, so sel <= sc_len
+  for (int p = lane; p < m; p += 32) {
+    const int key = nk[p], id = ni[p];
+    int r = 0;
+    for (int q = 0; q < m; ++q) r += ranks_before(nk[q], ni[q], key, id);
+    if (r < sel) {
+      sk[r] = key;
+      si[r] = id;
+    }
+  }
+  __syncwarp();
+  const int total = min(k, nr + sel);
+  int key = 0, id = 0, key2 = 0, id2 = 0, c = sel;
+  if (lane < nr) {
+    key = rk[lane];
+    id = ri[lane];
+  }
+  if (lane + 32 < nr) {
+    key2 = rk[lane + 32];
+    id2 = ri[lane + 32];
+  }
+  if (lane < nr) c = rank_in(sk, si, sel, key, id);
+  const int c0 = __shfl_sync(full, c, 0);  // survivors before entry 0 (all when nr = 0)
+  for (int t = lane; t - lane < nr; t += 32) {
+    int key3 = 0, id3 = 0;
+    if (t + 64 < nr) {
+      key3 = rk[t + 64];
+      id3 = ri[t + 64];
+    }
+    const int c2 = t + 32 < nr ? rank_in(sk, si, sel, key2, id2) : sel;
+    int c1 = __shfl_down_sync(full, c, 1);
+    const int c2_lane0 = __shfl_sync(full, c2, 0);
+    if (lane == 31) c1 = c2_lane0;
+    if (t < nr) {
+      if (t + c < k) {
+        mk[t + c] = key;
+        mi[t + c] = id;
+      }
+      for (int j = c; j < c1 && j + t + 1 < k; ++j) {
+        mk[j + t + 1] = sk[j];
+        mi[j + t + 1] = si[j];
+      }
+    }
+    key = key2;
+    id = id2;
+    c = c2;
+    key2 = key3;
+    id2 = id3;
+  }
+  for (int j = lane; j < c0; j += 32) {  // j < sel <= k
+    mk[j] = sk[j];
+    mi[j] = si[j];
+  }
+  __syncwarp();
+  for (int t = lane; t < total; t += 32) {
+    rk[t] = mk[t];
+    ri[t] = mi[t];
+  }
+  __syncwarp();
+  if (lane == 0) {
+    sm.run_n[u] = total;
+    sm.new_n[u] = 0;
+    if (total == k) {  // from now on only what ranks before the k-th can enter
+      sm.thr_key[u] = mk[k - 1];
+      sm.thr_id[u] = mi[k - 1];
+    }
+  }
+  __syncwarp();
+}
+
+// Block (user group, catalog part): users [u0, u0+32), items [j_lo, j_hi).
+// Writes the part's top-k of each user (ranked; past the part's item count
+// the value -inf with id INT_MAX) to row (part * U + u) of out_idx/out_val.
+// kPlace (ListPlace): where the long lists live; ws has the block's slice.
+template <int kPlace>
+__global__ void __launch_bounds__(kThreads, 2)
+    streaming_topk_kernel(const float* __restrict__ uT, int ldu,
+                          const float* __restrict__ itT, int ldi,
+                          const uint8_t* __restrict__ seen, int U, int I, int D, int k,
+                          int slack, int parts, int part_len, int* __restrict__ ws,
+                          int32_t* __restrict__ out_idx, float* __restrict__ out_val) {
+  extern __shared__ float smem[];  // dynamic shared memory starts 16-byte aligned
+  const int area = kStep + slack;
+  StreamSmem sm(reinterpret_cast<unsigned char*>(smem),
+                kPlace == kListsShared ? nullptr
+                                       : ws + blockIdx.x * StreamSmem::ws_ints(kPlace, k),
+                kPlace, k, area);
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int part = blockIdx.x % parts, u0 = (blockIdx.x / parts) * kSU;
+  const int j_lo = part * part_len, j_hi = min(I, j_lo + part_len);
+  for (int u = threadIdx.x; u < kSU; u += kThreads) {
+    sm.run_n[u] = 0;
+    sm.new_n[u] = 0;
+    sm.thr_key[u] = INT_MIN;  // nothing to beat yet: every entry ranks before it
+    sm.thr_id[u] = -1;
+  }
+  const int nd = (D + kDC - 1) / kDC;
+  const int nsteps = (j_hi - j_lo + kStep - 1) / kStep;
+  const int nc = nsteps * nd;
+  auto load = [&](int c) {
+    if (c < nc) {
+      const int j0 = j_lo + (c / nd) * kStep, d0 = (c % nd) * kDC;
+      float* ub = sm.us + (c % kSlices) * kDC * kSU;
+      float* ib = sm.is + (c % kSlices) * kDC * kStep;
+      for (int p = threadIdx.x; p < kDC * (kStep / 4); p += kThreads) {
+        const int r = p / (kStep / 4), q = 4 * (p % (kStep / 4));
+        const bool ok = d0 + r < D && j0 + q < ldi;
+        cp_async16(ib + r * kStep + q, ok ? itT + (size_t)(d0 + r) * ldi + j0 + q : itT, ok);
+      }
+      for (int p = threadIdx.x; p < kDC * (kSU / 4); p += kThreads) {
+        const int r = p / (kSU / 4), q = 4 * (p % (kSU / 4));
+        const bool ok = d0 + r < D && u0 + q < ldu;
+        cp_async16(ub + r * kSU + q, ok ? uT + (size_t)(d0 + r) * ldu + u0 + q : uT, ok);
+      }
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");  // empty past the end
+  };
+  // thread: users w*4 + r (r < 4), items lane*4 + c (c < 4) of the step;
+  // a user's survivors, running list and threshold belong to warp w alone
+  float acc[4][4];
+  uint8_t flag[4][4];
+  for (int c = 0; c < kSlices - 1; ++c) load(c);
+  for (int c = 0; c < nc; ++c) {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(kSlices - 2) : "memory");
+    __syncthreads();  // slice c landed; slice c - 1 is no longer read
+    load(c + kSlices - 1);
+    const int st = c / nd, dc = c % nd;
+    if (dc == 0) {
 #pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        if (r < nr)
-          tv[r * tile + jj] =
-              seen[(size_t)(u0 + r) * I + j] ? kSeenValue : acc[r];
-      }
-    }
-    __syncthreads();
-
-    if (w < nr) {
-      float* cv = rv + w * k;
-      int* ci = ri + w * k;
-      float* row = tv + w * tile;
-      int* cid = tid + w * tile;
-      float* bv = sv + w * k;
-      int* bi = si + w * k;
-      // survivors: tile entries that rank before the running k-th (all of
-      // the first tile), compacted in place in id order. Nothing else can
-      // reach the top k.
-      const bool first = base == 0;
-      const int thr_key = first ? 0 : order_key(cv[k - 1]);
-      const int thr_id = first ? 0 : ci[k - 1];
-      int c = 0;
-      for (int q = 0; q < tn; q += 32) {
-        const int p = q + lane;
-        const float v = p < tn ? row[p] : 0.0f;
-        const bool in = p < tn && (first || ranks_before(order_key(v), base + p,
-                                                         thr_key, thr_id));
-        const unsigned m = __ballot_sync(0xffffffffu, in);
-        if (in) {
-          const int dst = c + __popc(m & ((1u << lane) - 1u));
-          row[dst] = v;
-          cid[dst] = base + p;
-        }
-        c += __popc(m);
-        __syncwarp();
-      }
-      if (c > 0) {
-        // the best min(c, k) survivors, in rank order
-        const int m = min(c, k);
-        warp_select(
-            c, m,
-            [&](int p, int& key, int& id) {
-              key = order_key(row[p]);
-              id = cid[p];
-            },
-            [&](int p) { row[p] = knocked_out(); },
-            [&](int t, int key, int id) {
-              bv[t] = key_value(key);
-              bi[t] = id;
-            });
-        __syncwarp();
-        if (first) {  // tile >= k, so the first tile fills the running list
-          for (int t = lane; t < k; t += 32) {
-            cv[t] = bv[t];
-            ci[t] = bi[t];
-          }
-        } else {
-          // merge two rank-ordered lists (ids distinct: survivors come
-          // from this tile, the running list from earlier ones): an
-          // entry's new slot is its own index plus its rank in the other
-          // list. The tile buffer holds the result, then it is copied.
-          for (int t = lane; t < k; t += 32) {
-            const int pos = t + rank_in(bv, bi, m, order_key(cv[t]), ci[t]);
-            if (pos < k) {
-              row[pos] = cv[t];
-              cid[pos] = ci[t];
-            }
-          }
-          for (int t = lane; t < m; t += 32) {
-            const int pos = t + rank_in(cv, ci, k, order_key(bv[t]), bi[t]);
-            if (pos < k) {
-              row[pos] = bv[t];
-              cid[pos] = bi[t];
-            }
-          }
-          __syncwarp();
-          for (int t = lane; t < k; t += 32) {
-            cv[t] = row[t];
-            ci[t] = cid[t];
-          }
+      for (int r = 0; r < 4; ++r) {
+        // the step's seen flags, read now so that they arrive during the
+        // products (read in the epilogue, their latency would stall it)
+        const int j = j_lo + st * kStep + lane * 4;
+        const uint8_t* srow = seen + (size_t)min(u0 + w * 4 + r, U - 1) * I;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          acc[r][q] = 0.0f;
+          flag[r][q] = j + q < j_hi ? srow[j + q] : 0;
         }
       }
     }
-    __syncthreads();
+    const float* ub = sm.us + (c % kSlices) * kDC * kSU + w * 4;
+    const float* ib = sm.is + (c % kSlices) * kDC * kStep + lane * 4;
+    const int dn = min(kDC, D - dc * kDC);
+    // each score is one fmaf chain over ascending d, as user_item_dots
+    auto dot_step = [&](int d) {
+      const float4 uv = *reinterpret_cast<const float4*>(ub + d * kSU);
+      const float4 iv = *reinterpret_cast<const float4*>(ib + d * kStep);
+      const float uu[4] = {uv.x, uv.y, uv.z, uv.w}, ii[4] = {iv.x, iv.y, iv.z, iv.w};
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[r][q] = fmaf(uu[r], ii[q], acc[r][q]);
+    };
+    if (dn == kDC) {  // a whole slice, unrolled so that loads run ahead
+#pragma unroll
+      for (int d = 0; d < kDC; ++d) dot_step(d);
+    } else {
+      for (int d = 0; d < dn; ++d) dot_step(d);
+    }
+    if (dc != nd - 1) continue;
+    // epilogue: mask, drop what cannot reach the top k, append survivors
+    const int j0 = j_lo + st * kStep + lane * 4;
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int u = w * 4 + r;
+      if (u0 + u >= U) continue;
+      const int tk = sm.thr_key[u], ti = sm.thr_id[u];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int j = j0 + q;
+        if (j >= j_hi) continue;
+        const int key = order_key(flag[r][q] ? kSeenValue : acc[r][q]);
+        if (ranks_before(key, j, tk, ti)) {
+          const int pos = atomicAdd(&sm.new_n[u], 1);
+          sm.new_key[u * area + pos] = key;
+          sm.new_id[u * area + pos] = j;
+        }
+      }
+    }
+    __syncwarp();
+    // fold a user's survivors once they could overflow in the next step,
+    // and everyone's after the last step
+    const bool last = st == nsteps - 1;
+    for (int u = w * 4; u < w * 4 + 4; ++u) {
+      if (last || sm.new_n[u] > slack) fold_survivors(sm, u, k, area);
+    }
   }
-
-  if (w < nr) {
-    const size_t o = (size_t)(u0 + w) * k;
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  for (int u = w * 4; u < w * 4 + 4; ++u) {
+    if (u0 + u >= U) continue;
+    const size_t o = ((size_t)part * U + u0 + u) * k;
+    const int n = sm.run_n[u];
     for (int t = lane; t < k; t += 32) {
-      idx[o + t] = ri[w * k + t];
-      vals[o + t] = rv[w * k + t];
+      const bool real = t < n;
+      out_idx[o + t] = real ? sm.run_id[u * k + t] : INT_MAX;
+      out_val[o + t] = real ? key_value(sm.run_key[u * k + t]) : knocked_out();
     }
   }
+}
+
+// The k best of each user's `parts` ranked part lists (one warp a user),
+// in rank order; knocked-out entries are set to -inf in the part lists.
+__global__ void __launch_bounds__(kThreads)
+    streaming_merge_kernel(int32_t* __restrict__ part_idx, float* __restrict__ part_val,
+                           int U, int k, int parts, int32_t* __restrict__ idx,
+                           float* __restrict__ vals) {
+  const int u = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (u >= U) return;
+  auto at = [&](int p) { return ((size_t)(p / k) * U + u) * k + p % k; };
+  warp_select(
+      parts * k, k,
+      [&](int p, int& key, int& id) {
+        key = order_key(part_val[at(p)]);
+        id = part_idx[at(p)];
+      },
+      [&](int p) { part_val[at(p)] = knocked_out(); },
+      [&](int t, int key, int id) {
+        idx[(size_t)u * k + t] = id;
+        vals[(size_t)u * k + t] = key_value(key);
+      });
 }
 
 }  // namespace
@@ -219,13 +449,49 @@ extern "C" int fused_topk_retrieval_launch(const float* u, const float* itT,
                        stream, u, itT, seen, U, I, D, k, idx, vals);
 }
 
-extern "C" int streaming_topk_retrieval_launch(const float* u,
-                                               const float* itT,
-                                               const uint8_t* seen, int U,
-                                               int I, int D, int k, int tile,
-                                               int32_t* idx, float* vals,
-                                               void* stream) {
-  const size_t smem = sizeof(float) * (size_t)kRows * (D + 2 * tile + 4 * k);
-  return lgcnhs_launch(streaming_topk_kernel, (U + kRows - 1) / kRows, smem,
-                       stream, u, itT, seen, U, I, D, k, tile, idx, vals);
+// uT (D, ldu) and itT (D, ldi): the transposed user and item tables, row
+// strides multiples of 4 floats (zero padding past U and I), 16-byte
+// aligned. slack >= 0: survivors a user absorbs between folds. parts
+// catalog parts of part_len items (a multiple of kStep); with parts > 1,
+// part_idx/part_val hold (parts, U, k) entries for the merge. smem_limit:
+// the device's shared memory a block may take; the long lists not in it go
+// to ws, streaming_workspace_bytes for each of the ceil(U / 32) * parts
+// blocks (null when that is 0).
+extern "C" int streaming_topk_retrieval_launch(const float* uT, int ldu, const float* itT,
+                                               int ldi, const uint8_t* seen, int U, int I,
+                                               int D, int k, int slack, int parts,
+                                               int part_len, int smem_limit, int* ws,
+                                               int32_t* part_idx, float* part_val,
+                                               int32_t* idx, float* vals, void* stream) {
+  const int area = kStep + slack;
+  const int place = StreamSmem::place(k, area, smem_limit);
+  if (slack < 0 || parts < 1 || part_len % kStep != 0 || place < 0 ||
+      (place != kListsShared && !ws))
+    return (int)cudaErrorInvalidValue;
+  const int blocks = (U + kSU - 1) / kSU * parts;
+  const size_t smem = StreamSmem::smem_bytes(place, k, area);
+  int32_t* out_idx = parts > 1 ? part_idx : idx;
+  float* out_val = parts > 1 ? part_val : vals;
+  auto launch = [&](auto kernel) {
+    return lgcnhs_launch(kernel, blocks, smem, stream, uT, ldu, itT, ldi, seen, U, I, D, k,
+                         slack, parts, part_len, ws, out_idx, out_val);
+  };
+  int rc = place == kListsShared ? launch(streaming_topk_kernel<kListsShared>)
+           : place == kRunGlobal ? launch(streaming_topk_kernel<kRunGlobal>)
+                                 : launch(streaming_topk_kernel<kAllGlobal>);
+  if (rc != 0 || parts == 1) return rc;
+  return lgcnhs_launch(streaming_merge_kernel, (U + kWarps - 1) / kWarps, 0, stream, part_idx,
+                       part_val, U, k, parts, idx, vals);
+}
+
+// Shared memory of one streaming block with all its long lists in it.
+extern "C" long long streaming_smem_bytes(int k, int slack) {
+  return (long long)StreamSmem::smem_bytes(kListsShared, k, kStep + slack);
+}
+
+// Workspace bytes of one streaming block: its long lists that do not fit
+// smem_limit; -1 when the block does not fit even without them.
+extern "C" long long streaming_workspace_bytes(int k, int slack, int smem_limit) {
+  const int place = StreamSmem::place(k, kStep + slack, smem_limit);
+  return place < 0 ? -1 : 4 * (long long)StreamSmem::ws_ints(place, k);
 }

@@ -47,31 +47,23 @@ def retrieve_topk(
     """Full-catalog layer-0 retrieval: scores + mask + top-k, (U, k) int32.
 
     On CUDA this launches the one-shot fused kernel when its score rows fit
-    one block's shared memory, else the item-streaming kernel; either raises
-    when it cannot run. Elsewhere it is the plain chain. All paths give the
-    same indices on scores that are exact in f32."""
+    one block's shared memory, else the item-streaming kernel, which takes
+    any catalog and any k; either raises when it cannot run. Elsewhere it is
+    the plain chain. All paths give the same indices on scores that are
+    exact in f32."""
     if user_emb.device.type != "cuda":
         return masked_topk(user_emb @ item_emb.T, seen, k)
     from lgcnhs_tpu_torch.ops.cuda.retrieval import (
         device_smem_limit,
         fits_smem_retrieval,
         fused_topk_retrieval,
-        pick_stream_tile,
         streaming_topk_retrieval,
     )
 
     log = get_logger()
     n_items, d = item_emb.shape
-    limit = device_smem_limit(user_emb.device)
-    if fits_smem_retrieval(n_items, d, limit):
+    if fits_smem_retrieval(n_items, d, device_smem_limit(user_emb.device)):
         log.info("retrieve_topk: one-shot fused kernel (I=%d, D=%d, k=%d)", n_items, d, k)
         return fused_topk_retrieval(user_emb, item_emb, seen, k)[0]
-    tile = pick_stream_tile(d, k, limit)
-    if tile is None:
-        raise ValueError(
-            f"retrieve_topk: neither retrieval kernel fits {limit} B of shared "
-            f"memory at I={n_items}, D={d}, k={k}"
-        )
-    log.info("retrieve_topk: streaming kernel, item tile %d (I=%d, D=%d, k=%d)",
-             tile, n_items, d, k)
-    return streaming_topk_retrieval(user_emb, item_emb, seen, k, item_tile=tile)[0]
+    log.info("retrieve_topk: streaming kernel (I=%d, D=%d, k=%d)", n_items, d, k)
+    return streaming_topk_retrieval(user_emb, item_emb, seen, k)[0]

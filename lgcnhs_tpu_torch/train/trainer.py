@@ -67,7 +67,7 @@ from lgcnhs_tpu_torch.ops.cuda.propagation import (
     fits_dual,
     lightgcn_propagate_dual,
     lightgcn_propagate_dual_binary,
-    transpose_for_dual,
+    pad_for_dual,
 )
 from lgcnhs_tpu_torch.ops.propagation import lightgcn_propagate
 from lgcnhs_tpu_torch.ops.topk import masked_topk
@@ -121,16 +121,15 @@ def _loss_fn(params, R_hat, users, pos_items, neg_items, epsilon, n_layers,
     plays JAX's ``use_pallas``: with ``bf16_matmul`` and the kernel's guard
     it propagates through ``dual_matmul`` (the kernel on CUDA, its twin on
     the CPU). R_hat is the dense incidence or the factored triple
-    (R int8, du^-1/2, di^-1/2) of ``data/graph.binary_incidence_factors``,
-    optionally with R's transpose for the kernel as a fourth entry
-    (``device_binary_factors``)."""
+    (R int8, du^-1/2, di^-1/2) of ``data/graph.binary_incidence_factors``
+    (``device_binary_factors``; the kernel route pads R's rows once,
+    ``pad_for_dual``)."""
     D = params.user_emb.shape[1]
     if isinstance(R_hat, tuple):
-        R8, du_inv, di_inv = R_hat[:3]
+        R8, du_inv, di_inv = R_hat
         if use_kernel and bf16_matmul and fits_dual(D, R8.device):
             u_final, i_final = lightgcn_propagate_dual_binary(
                 params.user_emb, params.item_emb, R8, du_inv, di_inv, n_layers, True,
-                RT=R_hat[3] if len(R_hat) > 3 else None,
             )
         else:  # correctness fallback; the trainer picks the tuple only for the kernel
             dense = du_inv[:, None] * R8.to(du_inv.dtype) * di_inv[None, :]
@@ -222,7 +221,7 @@ def device_binary_factors(n_users: int, n_items: int, es: EdgeSet, device):
     """``data/graph.binary_incidence_factors`` built on ``device`` from the
     edge arrays, with the same values: (R int8 0/1, du^-1/2 f32,
     di^-1/2 f32), the inverse square roots taken in f64. The kernel route
-    appends R's transpose (``transpose_for_dual``)."""
+    then pads R's rows (``pad_for_dual``)."""
     R8 = torch.zeros((n_users, n_items), dtype=torch.int8, device=device)
     R8[torch.from_numpy(np.asarray(es.users, np.int64)).to(device),
        torch.from_numpy(np.asarray(es.items, np.int64)).to(device)] = 1
@@ -332,9 +331,9 @@ def train_lightgcn(
 
     if _kernel and _bf16 and fits_dual(hp.embedding_dim, device):
         R8, du_inv, di_inv = device_binary_factors(U, I, graph.train, device)
-        # the kernel scans R and its transpose; the incidence is constant,
-        # so the transpose is built once for the whole run
-        R_hat = (R8, du_inv, di_inv, transpose_for_dual(R8))
+        # the kernel reads R's rows in 16-byte copies; the incidence is
+        # constant, so its padded-stride copy is built once for the run
+        R_hat = (pad_for_dual(R8), du_inv, di_inv)
         log.info("training %s: int8 binary incidence through the dual_matmul CUDA kernel",
                  model_name)
     elif _bf16 and 4.0 * U * I > HOST_INCIDENCE_BUILD_BYTES:

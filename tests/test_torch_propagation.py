@@ -140,18 +140,89 @@ def test_dual_matmul_rejects_mixed_dtypes():
 
 
 def test_dual_guard_and_transpose():
+    """The guard sized from the kernel's shared memory; R is read in its
+    own layout (no transposed copy): a padded-stride view goes through."""
     h100 = 232_448  # cudaDevAttrMaxSharedMemoryPerBlockOptin of an H100
     assert tdual.fits_smem_dual(64, h100) and tdual.fits_smem_dual(128, h100)
     assert not tdual.fits_smem_dual(129, h100) and not tdual.fits_smem_dual(0, h100)
-    assert not tdual.fits_smem_dual(64, tdual.smem_bytes(64) - 1)
-    assert tdual.smem_bytes(128) == 36_864  # ptxas's static shared memory at D=128
+    widest = max(tdual.smem_bytes(64, r, e) for r, e in tdual.PAIRS)
+    assert widest == tdual.smem_bytes(64, torch.float32, torch.float32) == 143_360
+    assert not tdual.fits_smem_dual(64, widest - 1) and tdual.fits_smem_dual(64, widest)
+    # propagation.cu Layout: 4 stages of (raw R chunk + 64 rows of X or Y);
+    # int8 R is widened in registers, so no bf16 copy of the chunk is kept;
+    # 128-row tiles for the bf16 pairs to D=64
+    assert tdual.smem_bytes(64) == 4 * (128 * 80 + 64 * 64 * 2) == 73_728
+    assert tdual.smem_bytes(128) == 4 * (64 * 80 + 64 * 128 * 2) == 86_016
+    assert tdual.smem_bytes(64, torch.bfloat16, torch.bfloat16) == \
+        4 * (128 * 72 * 2 + 64 * 64 * 2) == 106_496
+    assert tdual.smem_bytes(128, torch.float32, torch.float32) == 208_896
+    # a block's output rows: 128 for the bf16 pairs up to DT = 64, else 64
+    assert tdual.smem_bytes(128, torch.bfloat16, torch.bfloat16) == \
+        4 * (64 * 72 * 2 + 64 * 128 * 2) == 102_400
+    assert tdual.smem_bytes(64, torch.float32, torch.float32) == \
+        4 * (64 * 68 * 4 + 64 * 72 * 4) == 143_360
+    # X/Y tiles DT wide: d rounded up to 16, 32, 64 or 128
+    assert [tdual.smem_bytes(d) for d in (1, 3, 16, 17, 20, 64, 65, 128)] == \
+        [4 * (128 * 80 + 64 * dt * 2) for dt in (16, 16, 16, 32, 32, 64)] + [86_016] * 2
     assert tdual.fits_dual(4096, torch.device("cpu"))  # the twin takes any width
+    assert not hasattr(tdual, "transpose_for_dual")
     R = torch.arange(12, dtype=torch.float32).reshape(3, 4)
-    RT = tdual.transpose_for_dual(R)
-    assert RT.is_contiguous() and torch.equal(RT, R.T)
+    Rp = tdual.pad_for_dual(R)
+    assert torch.equal(Rp, R) and Rp.stride() == (64, 1)
     X, Y = torch.ones((4, 2)), torch.ones((3, 2))
-    for g, w in zip(tdual.dual_matmul(R, X, Y, RT), tdual.dual_matmul_ref(R, X, Y)):
+    for g, w in zip(tdual.dual_matmul(Rp, X, Y), tdual.dual_matmul_ref(R, X, Y)):
         torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+def test_dual_splits_fill_the_card_once():
+    """Split-K sizing: at ML-1M (int8/bf16, D=64, 132 SMs, two blocks an SM)
+    role U's 58 item chunks go in 3 parts, role I's 95 user chunks in 4:
+    48 * 3 + 29 * 4 = 260 blocks, all resident; with enough tiles, none."""
+    def block_rows(d, e):  # the launcher's dual_matmul_block_rows
+        return 128 if e == torch.bfloat16 and d <= 64 else 64
+
+    def splits(U_, I_, d, r, e):
+        return tdual.dual_splits(U_, I_, block_rows(d, e), 2 * 132)
+
+    assert splits(6040, 3706, 64, torch.int8, torch.bfloat16) == (3, 4)
+    for U_, I_, d in ((6040, 3706, 64), (300, 70, 8), (70, 1000, 128), (1, 1, 8)):
+        for r, e in tdual.PAIRS:
+            su, si = splits(U_, I_, d, r, e)
+            bm = block_rows(d, e)
+            assert 1 <= su <= -(-I_ // 64) and 1 <= si <= -(-U_ // 64)
+            assert (su, si) == (1, 1) or -(-U_ // bm) * su + -(-I_ // bm) * si <= 2 * 132
+    assert splits(60_000, 60_000, 64, torch.int8, torch.bfloat16) == (1, 1)
+
+
+@pytest.mark.parametrize("r_name,e_name", [("f32", "f32"), ("bf16", "bf16"),
+                                           ("int8", "bf16"), ("int8", "f32")])
+def test_pad_for_dual_view_equals_r_and_matches_jax(r_name, e_name):
+    """R's padded-stride copy: its (U, I) view equals R, its row stride is a
+    multiple of 64 entries with zeros past I, and the twin through it equals
+    the twin without it and the Pallas kernel in interpret mode."""
+    R, X, Y, gU, gI = _dual_problem(np.random.default_rng(5), r_name, e_name)
+    Rj, Rt = _both(R, r_name)
+    Rp = tdual.pad_for_dual(Rt)
+    assert Rp.shape == Rt.shape and Rp.dtype == Rt.dtype and torch.equal(Rp, Rt)
+    ld = Rp.stride(0)
+    assert Rp.stride(1) == 1 and ld % tdual.ROW_ALIGN == 0 and ld >= I
+    full = torch.as_strided(Rp, (U, ld), (ld, 1))
+    assert not full[:, I:].any()
+    assert tdual.rows_aligned(Rp) and not tdual.rows_aligned(Rt)  # I = 71 entries a row
+    _, Xt = _both(X, e_name)
+    _, Yt = _both(Y, e_name)
+    Xj, Yj = jnp.asarray(X, JAX[e_name]), jnp.asarray(Y, JAX[e_name])
+    want = jpallas.dual_matmul(Rj, Xj, Yj, True)
+    cot = (torch.from_numpy(gU), torch.from_numpy(gI))
+    results = []
+    for r in (Rp, Rt):
+        x, y = Xt.clone().requires_grad_(True), Yt.clone().requires_grad_(True)
+        out = tdual.dual_matmul_ref(r, x, y)
+        results.append((*out, *torch.autograd.grad(out, (x, y), cot)))
+    for g, w in zip(results[0], results[1]):
+        assert torch.equal(g, w)
+    for g, w in zip(results[0][:2], want):
+        np.testing.assert_array_equal(g.detach().numpy(), np.asarray(w))
 
 
 # -- the wrappers ---------------------------------------------------------------

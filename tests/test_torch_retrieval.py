@@ -157,14 +157,46 @@ def test_guards_size_against_the_block_limit():
     # ML-1M (3706 items, D=64): the one-shot kernel fits an H100 block
     assert tret.fits_smem_retrieval(3706, 64, H100_SMEM_OPTIN)
     assert not tret.fits_smem_retrieval(50_000, 64, H100_SMEM_OPTIN)
-    tile = tret.pick_stream_tile(64, 100, H100_SMEM_OPTIN)
-    assert tile == 2048 and tret.stream_smem_bytes(64, 100, 2 * tile) > H100_SMEM_OPTIN
-    assert tret.stream_smem_bytes(1024, 100, tret.pick_stream_tile(1024, 100, H100_SMEM_OPTIN)) \
-        <= H100_SMEM_OPTIN
-    # a large k narrows the tile, and a hopeless one finds none
-    narrow = tret.pick_stream_tile(64, 1000, H100_SMEM_OPTIN)
-    assert narrow is not None and narrow < tret.MAX_TILE
-    assert tret.pick_stream_tile(64, 20_000, H100_SMEM_OPTIN) is None
+    # streaming at k=100: 16 survivors between folds (retrieval.cu
+    # StreamSmem); two such blocks share an H100 SM (233,472 B, 1 KB each
+    # reserved)
+    tile = tret.pick_stream_tile(100)
+    assert tile == tret.STREAM_TILE == 16 and tret.stream_smem_bytes(100, tile) == 106_496
+    # the default tile grows with k (k / 8), up to 256
+    assert [tret.pick_stream_tile(k) for k in (1, 200, 1000, 20_000)] == [16, 25, 125, 256]
+    assert 2 * (tret.stream_smem_bytes(100, tile) + 1024) <= 233_472
+    # a survivor area is one 128-item step plus the tile, whatever k: one
+    # more survivor is a (key, id) for each of 32 users and for the ranked
+    # survivors of each of 8 warps
+    assert tret.stream_smem_bytes(200, 5) - tret.stream_smem_bytes(200, 4) == 4 * 2 * (32 + 8)
+    # a larger k leaves one block an SM; at a 16-entry tile the long lists
+    # stay in shared memory up to k=484, and past it (k=1000, 20,000: the
+    # parent's kernel took k=1000 in shared memory) the launcher moves them to
+    # a device-memory workspace, so every k runs
+    assert 2 * (tret.stream_smem_bytes(200, tile) + 1024) > 233_472
+    assert tret.stream_smem_bytes(484, tile) <= H100_SMEM_OPTIN
+    for k in (485, 1000, 20_000):
+        assert tret.stream_smem_bytes(k, tile) > H100_SMEM_OPTIN
+    rng = np.random.default_rng(9)
+    ue, ie = dyadic(rng, (40, 8)), dyadic(rng, (1200, 8))
+    seen = rng.random((40, 1200)) < 0.25
+    got = _port(ue, ie, seen, 1000, fn=tret.streaming_topk_retrieval)[0]
+    want = np.asarray(jtopk.masked_topk(_jax_scores(ue, ie), jnp.asarray(seen), 1000))
+    assert got.shape == (40, 1000)
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("n_users,n_items,parts", [(6040, 49_410, 2), (128, 16_384, 26),
+                                                   (70, 1000, 8), (6040, 100, 1)])
+def test_stream_parts_spread_blocks_evenly(n_users, n_items, parts):
+    """The streaming kernel's catalog parts on 132 SMs: whole 128-item
+    steps, every part non-empty, blocks spread about evenly (the rule aims
+    at 90%; rounding parts to whole steps can cost some of it)."""
+    got, part_len = tret.stream_parts(n_users, n_items, 132)
+    assert got == parts and part_len % tret.STREAM_STEP == 0
+    assert (got - 1) * part_len < n_items <= got * part_len
+    blocks = -(-n_users // tret.STREAM_USERS) * got
+    assert got == -(-n_items // 128) or blocks / (-(-blocks // 132) * 132) >= 0.75
 
 
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])

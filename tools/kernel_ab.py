@@ -1,22 +1,36 @@
 #!/usr/bin/env python3
 """A/B timing of CUDA kernel source variants on one card.
 
-    python3 tools/kernel_ab.py DIR [DIR ...]
+    python3 tools/kernel_ab.py [--kinds fused,streaming,serve,dual] [--k K] DIR [DIR ...]
 
-Each DIR holds a variant of ``lgcnhs_tpu_torch/ops/cuda``'s ``retrieval.cu``,
-``fusion_serve.cu`` and ``common.cuh`` with the package's launcher
-signatures (pass that directory itself for the current sources). Every
-variant is built with the package's nvcc flags, checked against the plain
-twins, and timed at the serving slice's shapes (k=100): one-shot retrieval
-and fused serving at ML-1M scale (6040 x 3706, D=64), streaming retrieval
-over a 50k-item synthetic catalog. Rounds run the variants in A..Z, Z..A
-order, three times, so every variant is timed next to every other on the
-same card; each printed time is the median of 10 CUDA-event timings.
+Each DIR holds a variant of some of ``lgcnhs_tpu_torch/ops/cuda``'s
+``retrieval.cu``, ``fusion_serve.cu`` and ``propagation.cu`` (with the
+``common.cuh`` they include) and the package's launcher signatures; pass
+``lgcnhs_tpu_torch/ops/cuda`` itself for the current sources. A
+``propagation.cu`` may also have the launcher of the earlier two-layout
+kernel, which read R and a transposed copy of it (``dual_matmul_launch``
+without ``dual_matmul_smem_bytes``); it is then given that copy. Likewise a
+``retrieval.cu`` with the earlier streaming launcher (item tiles of at least
+k items; no ``streaming_workspace_bytes``) gets the tile its package picked: the
+widest power of two up to 2048 whose block fits (2048 at k=100).
+A kind is timed for the variants that have its source.
+
+Every variant is built with the package's nvcc flags (``DIR:tile=N`` sets
+the streaming kernel's ``item_tile``, else it is ``pick_stream_tile(k)``), checked
+against the plain twins, and timed at the main path's shapes (k=100, or ``--k``): one-shot
+retrieval, fused serving and ``dual_matmul`` (int8 R, bf16 X and Y, D=64)
+at ML-1M scale (6040 x 3706), streaming retrieval over a 50k-item synthetic
+catalog. Rounds run the variants in A..Z, Z..A order, three times, so every
+variant is timed next to every other on the same card; each printed time
+is the median of 10 CUDA-event timings of one launch, then the device time
+of one launch from ``torch.profiler`` over 20 launches.
 """
 from __future__ import annotations
 
+import argparse
 import ctypes
 import os
+import re
 import subprocess
 import sys
 
@@ -29,21 +43,29 @@ from lgcnhs_tpu_torch import config as tcfg  # noqa: E402
 from lgcnhs_tpu_torch.data.datasets import load_dataset  # noqa: E402
 from lgcnhs_tpu_torch.data.graph import build_graph, interaction_matrix, pos_bool_matrix  # noqa: E402
 from lgcnhs_tpu_torch.models.lightgcn import init_lightgcn_opti  # noqa: E402
-from lgcnhs_tpu_torch.ops.cuda import build, fusion_serve as fs, retrieval as rt  # noqa: E402
+from lgcnhs_tpu_torch.ops.cuda import build, fusion_serve as fs, propagation as prop  # noqa: E402
+from lgcnhs_tpu_torch.ops.cuda import retrieval as rt  # noqa: E402
 from lgcnhs_tpu_torch.ops.diffusion import general_spreading_matrix, hybrid_transfer  # noqa: E402
+from lgcnhs_tpu_torch.train.trainer import device_binary_factors  # noqa: E402
 
-K = 100
+K = 100  # --k
 P, INT = ctypes.c_void_p, ctypes.c_int
+SOURCES = {"fused": "retrieval", "streaming": "retrieval", "serve": "fusion_serve",
+           "dual": "propagation"}
 
 
-def compile_variant(n, d):
+def compile_variant(n, spec):
+    """{source name: loaded library} of the variant ``DIR[:tile=N]``."""
+    d = spec.split(":")[0]
     out_dir = os.path.join(ROOT, "artifacts", "kernel_ab")
     os.makedirs(out_dir, exist_ok=True)
     procs = []
-    for name in ("retrieval", "fusion_serve"):
+    for name in sorted(set(SOURCES.values())):
+        src = os.path.join(d, f"{name}.cu")
+        if not os.path.exists(src):
+            continue
         out = os.path.join(out_dir, f"v{n}-lib{name}.so")
-        cmd = [build._nvcc(), *build.NVCC_FLAGS, "-Xptxas", "-v", "-o", out,
-               os.path.join(d, f"{name}.cu")]
+        cmd = [build._nvcc(), *build.NVCC_FLAGS, "-Xptxas", "-v", "-o", out, src]
         procs.append((name, out, subprocess.Popen(cmd)))
     libs = {}
     for name, out, proc in procs:
@@ -63,10 +85,10 @@ def slice_inputs(dev, dataset, over):
     return g, p.user_emb.to(dev), p.item_emb.to(dev), seen
 
 
-def main(variants):
+def main(variants, kinds):
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
-    libs = {d: compile_variant(n, d) for n, d in enumerate(variants)}
+    libs = {v: compile_variant(n, v) for n, v in enumerate(variants)}
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip()
     print(f"card: {smi}", flush=True)
@@ -78,16 +100,81 @@ def main(variants):
     a_val, a_col = A[rows, cols].contiguous(), cols.to(torch.int32)
     a_ptr = torch.zeros(g.n_users + 1, dtype=torch.int32, device=dev)
     a_ptr[1:] = torch.cumsum(torch.bincount(rows, minlength=g.n_users), 0)
-    _, ueb, ieb, seenb = slice_inputs(
-        dev, "synthetic",
-        {"synthetic_users": 6040, "synthetic_items": 50_000, "synthetic_interactions": 1_000_209})
-    tile = rt.pick_stream_tile(64, K, build.device_smem_limit("retrieval", dev))
+    R8 = device_binary_factors(g.n_users, g.n_items, g.train, dev)[0]
+    R8p, R8T = prop.pad_for_dual(R8), R8.t().contiguous()
+    X, Y = ie.to(torch.bfloat16), ue.to(torch.bfloat16)
+    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    ws = torch.empty((8 * g.n_users + 8 * g.n_items) * 64, dtype=torch.float32, device=dev)
+
+    def splits(plib):
+        """The wrapper's split rule for this variant's tile and residency."""
+        slots = n_sms * plib.dual_matmul_resident_blocks(2, 1, 64)
+        su, si = prop.dual_splits(g.n_users, g.n_items, plib.dual_matmul_block_rows(2, 1, 64),
+                                  slots)
+        if su > 8 or si > 8:
+            raise RuntimeError(f"splits {su, si} exceed the workspace")
+        return su, si
+    ueb = ieb = seenb = None
+    if "streaming" in kinds:
+        _, ueb, ieb, seenb = slice_inputs(
+            dev, "synthetic",
+            {"synthetic_users": 6040, "synthetic_items": 50_000,
+             "synthetic_interactions": 1_000_209})
+    serving = {False: (ue, ie.T.contiguous(), seen.view(torch.uint8))}
+    if ueb is not None:
+        serving[True] = (ueb, ieb.T.contiguous(), seenb.view(torch.uint8))
+    def stream_tile(lib):
+        spec = lib_key(lib)
+        tiles = [int(o[5:]) for o in spec.split(":")[1:] if o.startswith("tile=")]
+        return tiles[-1] if tiles else rt.pick_stream_tile(K)
+
+    limit = build.device_smem_limit("retrieval", dev)
+    old_tile = 2048  # the earlier launcher: 4 * 8 * (64 + 2 tile + 4 k) bytes a block
+    while old_tile > K and 32 * (64 + 2 * old_tile + 4 * K) > limit:
+        old_tile //= 2
+    stream_ws = {}
+
+    def stream_workspace(lib):
+        """The pointer to the long lists' workspace (those that do not fit
+        shared memory), or None."""
+        key = lib_key(lib)
+        if key not in stream_ws:
+            rlib = lib["retrieval"]
+            rlib.streaming_workspace_bytes.argtypes = [INT, INT, INT]
+            rlib.streaming_workspace_bytes.restype = ctypes.c_longlong
+            per_block = rlib.streaming_workspace_bytes(K, stream_tile(lib), limit)
+            blocks = -(-ueb.shape[0] // rt.STREAM_USERS) * parts
+            stream_ws[key] = torch.empty(blocks * per_block // 4, dtype=torch.int32,
+                                         device=dev) if per_block else None
+        return None if stream_ws[key] is None else stream_ws[key].data_ptr()
+    if ueb is not None:
+        uTp, itTp = rt._padded_t(ueb), rt._padded_t(ieb)
+        parts, part_len = rt.stream_parts(ueb.shape[0], ieb.shape[0], n_sms)
+        part_idx = torch.empty(parts * ueb.shape[0] * K, dtype=torch.int32, device=dev)
+        part_val = torch.empty(parts * ueb.shape[0] * K, dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream().cuda_stream
 
     def launch(lib, kind):
-        u, it, s = (ueb, ieb, seenb) if kind == "streaming" else (ue, ie, seen)
-        itT, s8 = it.T.contiguous(), s.view(torch.uint8)
-        U, I = s.shape
+        if kind == "dual":
+            U, I = R8.shape
+            out_u = torch.empty((U, 64), dtype=torch.float32, device=dev)
+            out_i = torch.empty((I, 64), dtype=torch.float32, device=dev)
+            fn = lib["propagation"].dual_matmul_launch
+            if hasattr(lib["propagation"], "dual_matmul_smem_bytes"):
+                fn.argtypes = [INT, INT, P, INT, P, P] + [INT] * 6 + [P] * 4
+                su, si = splits(lib["propagation"])
+                rc = fn(2, 1, R8p.data_ptr(), R8p.stride(0), X.data_ptr(), Y.data_ptr(), 64,
+                        U, I, 64, su, si, ws.data_ptr(), out_u.data_ptr(), out_i.data_ptr(),
+                        stream)
+            else:  # the two-layout launcher: R and its transposed copy
+                fn.argtypes = [INT, INT] + [P] * 4 + [INT] * 3 + [P] * 3
+                rc = fn(2, 1, R8.data_ptr(), R8T.data_ptr(), X.data_ptr(), Y.data_ptr(),
+                        U, I, 64, out_u.data_ptr(), out_i.data_ptr(), stream)
+            if rc != 0:
+                raise RuntimeError(f"dual: CUDA error {rc}")
+            return out_u, out_i
+        u, itT, s8 = serving[kind == "streaming"]
+        U, I = s8.shape
         D = u.shape[1]
         idx = torch.empty((U, K), dtype=torch.int32, device=dev)
         vals = torch.empty((U, K), dtype=torch.float32, device=dev)
@@ -96,10 +183,18 @@ def main(variants):
             fn.argtypes = [P, P, P, INT, INT, INT, INT, P, P, P]
             rc = fn(u.data_ptr(), itT.data_ptr(), s8.data_ptr(), U, I, D, K,
                     idx.data_ptr(), vals.data_ptr(), stream)
-        elif kind == "streaming":
+        elif kind == "streaming" and hasattr(lib["retrieval"], "streaming_workspace_bytes"):
+            fn = lib["retrieval"].streaming_topk_retrieval_launch
+            fn.argtypes = [P, INT, P, INT, P] + [INT] * 8 + [P] * 6
+            rc = fn(uTp.data_ptr(), uTp.shape[1], itTp.data_ptr(), itTp.shape[1],
+                    s8.data_ptr(), U, I, D, K, stream_tile(lib), parts, part_len, limit,
+                    stream_workspace(lib),
+                    part_idx.data_ptr(), part_val.data_ptr(), idx.data_ptr(),
+                    vals.data_ptr(), stream)
+        elif kind == "streaming":  # the earlier launcher: item tiles of `tile` >= k items
             fn = lib["retrieval"].streaming_topk_retrieval_launch
             fn.argtypes = [P, P, P, INT, INT, INT, INT, INT, P, P, P]
-            rc = fn(u.data_ptr(), itT.data_ptr(), s8.data_ptr(), U, I, D, K, tile,
+            rc = fn(u.data_ptr(), itT.data_ptr(), s8.data_ptr(), U, I, D, K, old_tile,
                     idx.data_ptr(), vals.data_ptr(), stream)
         else:
             fn = lib["fusion_serve"].fused_lgcnhs_serve_launch
@@ -111,9 +206,10 @@ def main(variants):
             raise RuntimeError(f"{kind}: CUDA error {rc}")
         return idx, vals
 
-    twins = {"fused": rt.fused_topk_retrieval_ref(ue, ie, seen, K),
-             "streaming": rt.fused_topk_retrieval_ref(ueb, ieb, seenb, K),
-             "serve": fs.fused_lgcnhs_serve_ref(ue, ie, A, W, seen, K)}
+    twins = {"fused": lambda: rt.fused_topk_retrieval_ref(ue, ie, seen, K),
+             "streaming": lambda: rt.fused_topk_retrieval_ref(ueb, ieb, seenb, K),
+             "serve": lambda: fs.fused_lgcnhs_serve_ref(ue, ie, A, W, seen, K),
+             "dual": lambda: prop.dual_matmul_ref(R8, X, Y)}
 
     def median_ms(lib, kind, reps=10):
         launch(lib, kind)
@@ -127,24 +223,73 @@ def main(variants):
             times.append(a.elapsed_time(b))
         return sorted(times)[reps // 2]
 
-    for kind in ("fused", "streaming", "serve"):
-        for d in variants:
-            idx, vals = launch(libs[d], kind)
+    def device_ms(lib, kind, n=20):
+        """Device time of one launch's kernels, from torch.profiler."""
+        from torch.profiler import ProfilerActivity, profile
+
+        launch(lib, kind)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                launch(lib, kind)
             torch.cuda.synchronize()
-            wi, wv = twins[kind]
-            print(f"{kind} {d}: index agreement with twin "
+        by_kernel = {}
+        for ev in prof.key_averages():
+            if getattr(ev, "device_type", None) != torch.autograd.DeviceType.CUDA:
+                continue
+            if not any(s in ev.key for s in ("dual_", "topk_kernel", "merge_kernel", "serve_kernel")):
+                continue  # the outputs' allocation
+            found = re.search(r"\w+_kernel", ev.key)
+            name = found.group(0) if found else ev.key[:40]
+            us = getattr(ev, "self_device_time_total", 0.0) or 0.0
+            by_kernel[name] = by_kernel.get(name, 0.0) + us / 1e3 / n
+        split[(lib_key(lib), kind)] = by_kernel
+        return sum(by_kernel.values())
+
+    split = {}
+
+    def lib_key(lib):
+        return next(v for v in variants if libs[v] is lib)
+
+    for kind in kinds:
+        have = [v for v in variants if SOURCES[kind] in libs[v]]
+        if not have:
+            continue
+        want = twins[kind]()
+        for v in have:
+            got = launch(libs[v], kind)
+            torch.cuda.synchronize()
+            if kind == "dual":
+                diffs = [(a - b).abs().max() for a, b in zip(got, want)]
+                rel = max(float(d / b.abs().max()) for d, b in zip(diffs, want))
+                print(f"dual {v}: max |diff| to twin {max(float(d) for d in diffs):.3e}, "
+                      f"relative to the output's scale {rel:.3e}", flush=True)
+                continue
+            (idx, vals), (wi, wv) = got, want
+            print(f"{kind} {v}: index agreement with twin "
                   f"{float((idx == wi).float().mean()):.6f}, max |value diff| "
                   f"{float((vals - wv).abs().max()):.3e}", flush=True)
-        times = {d: [] for d in variants}
+        times = {v: [] for v in have}
+        dev_times = {v: [] for v in have}
         for _ in range(3):
-            for d in variants + variants[::-1]:
-                times[d].append(median_ms(libs[d], kind))
-        for d in variants:
-            print(f"{kind} {d} ms: {' '.join(f'{t:.4f}' for t in times[d])} [{smi}]", flush=True)
+            for v in have + have[::-1]:
+                times[v].append(median_ms(libs[v], kind))
+                dev_times[v].append(device_ms(libs[v], kind))
+        for v in have:
+            print(f"{kind} {v} ms: {' '.join(f'{t:.4f}' for t in times[v])}; device ms: "
+                  f"{' '.join(f'{t:.4f}' for t in dev_times[v])}; by kernel "
+                  f"{ {k: round(t, 4) for k, t in split[(v, kind)].items()} } [{smi}]",
+                  flush=True)
 
 
 if __name__ == "__main__":
-    if len(sys.argv) < 2 or not torch.cuda.is_available():
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--kinds", default="fused,streaming,serve,dual")
+    parser.add_argument("--k", type=int, default=K)
+    parser.add_argument("variants", nargs="*")
+    args = parser.parse_args()
+    if not args.variants or not torch.cuda.is_available():
         print(__doc__)
         sys.exit(2)
-    main(sys.argv[1:])
+    K = args.k
+    main(args.variants, [k for k in args.kinds.split(",") if k])
