@@ -14,9 +14,15 @@ neither JAX nor ``lgcnhs_tpu``. Phases:
    exact in f32, tie-equivalence (agreement >= 0.98, mismatched slots within
    5e-4 relative under an f64 reference) on continuous inputs; retrieval at
    k=10/100 with sub-sentinel users, streaming retrieval at 50k items and at
-   D=1024, fused serving with a fewer-than-k-unseen user, all at the slice's
-   6040 x 3706 x 64 too, and ragged shapes (partial user blocks, k == I,
-   I below a warp, k above 128). ``dual_matmul`` (training) for its four
+   D=1024, fused serving with a fewer-than-k-unseen user and a user with no
+   interactions (a second launch bitwise equal), all at the slice's
+   6040 x 3706 x 64 too, fused serving also over 20,000 items (past the
+   earlier kernel's shared-memory cap) at k=1/100/1000, with a W of 20
+   significant bits (which every bf16 part of W must carry), and ragged
+   shapes (partial user blocks, k == I, I below a warp, k above 128, an A
+   that is not exact in bf16). The fused serving kernel's block memory
+   against its Python sizing, its bf16 split of A and W against the plain
+   split and its flag for an A not exact in bf16. ``dual_matmul`` (training) for its four
    dtype pairs on the slice's 6040 x 3706 train incidence at D=64, forward
    and backward: bitwise equal on dyadic inputs, within 1e-5 of each
    output's scale on continuous ones (f32 sums in another order; a bf16
@@ -32,8 +38,9 @@ neither JAX nor ``lgcnhs_tpu``. Phases:
    first, and at k=1000 over 50k items.
 4. The serving slice end to end through ``lgcnhs_tpu_torch.cli.retrieve``
    (ML-1M scale, ``--env prod``, k=100) with a seeded LightGCNOpti
-   checkpoint: SpreadLightGCNOpti, LightGCNOpti, and LightGCNOpti over a
-   catalog beyond the one-shot kernel's cap. Then the training slice: the
+   checkpoint: SpreadLightGCNOpti, LightGCNOpti, and both over a 49,410-item
+   catalog (beyond the one-shot kernel's cap; SpreadLightGCNOpti through the
+   fused serving kernel, as at ML-1M). Then the training slice: the
    same CLI on an empty workdir trains LightGCNOpti for 1000 epochs through
    the ``dual_matmul`` kernel (6 launches a step) and serves
    SpreadLightGCNOpti from the checkpoint it wrote. Launch counts (and the
@@ -47,10 +54,11 @@ neither JAX nor ``lgcnhs_tpu``. Phases:
 5. Timings at the main path's shapes: kernel, plain twin, and the nearest
    library composition (torch.matmul + torch.topk, two bf16 torch.matmul
    for ``dual_matmul``; no single PyTorch call computes these functions, so
-   ``library_ms`` is null), medians of CUDA-event timings; for the two
-   redesigned kernels (``dual_matmul``, streaming retrieval) also their
-   device ms and their composition's from ``torch.profiler`` and their
-   share of the bound; the train step's ms and examples/s over a
+   ``library_ms`` is null), medians of CUDA-event timings; for the three
+   redesigned kernels (``dual_matmul``, streaming retrieval, fused serving)
+   also their device ms and their composition's from ``torch.profiler`` and
+   their share of the bound (fused serving: also its dense floor, the
+   tensor-core work of its design at the bf16 peak); the train step's ms and examples/s over a
    synchronized steady window, its device-busy ms and idle share, and its
    device time by kernel from ``torch.profiler``.
 
@@ -252,8 +260,14 @@ def main() -> int:
         return torch.where(seen, torch.full_like(s, MASK_VALUE), s)
 
     def serve_ref64(ue, ie, A, W, seen):
-        f = (ue.double() @ ie.double().T) * (A.double() @ W.double())
-        return torch.where(seen, torch.full_like(f, fs.EXCLUDED), f)
+        """f64 fused scores; F summed over row blocks of W, so no f64 copy of
+        all of W is made (9.8 GB in f32 at 49,410 items)."""
+        f = torch.zeros((A.shape[0], W.shape[1]), dtype=torch.float64, device=A.device)
+        step = max(1, (1 << 28) // W.shape[1])
+        for l0 in range(0, W.shape[0], step):
+            f += A[:, l0:l0 + step].double() @ W[l0:l0 + step].double()
+        f *= ue.double() @ ie.double().T
+        return f.masked_fill_(seen, fs.EXCLUDED)
 
     # -- 3. kernels against their twins ----------------------------------
     def retrieval_checks(U, I, D, ks, label, streaming_only=False):
@@ -310,27 +324,59 @@ def main() -> int:
                       and got[0][1, :3].tolist() == [5, 17, 250][:min(k, 3)])
 
     def serve_checks(U, I, D, ks, label, A_real=None):
+        """Fused serving against its twin at each k, dyadic and continuous,
+        with a second launch bitwise equal to the first; user 0 has three
+        unseen items (fewer than k: its seen items follow, lowest id first),
+        user 1 none seen (every fused score +-0). W is drawn on the card."""
+        wgen = torch.Generator(device=dev).manual_seed(SEED)
         for exact in (True, False):
             ue = dyadic((U, D)) if exact else normal((U, D), 0.3)
             ie = dyadic((I, D)) if exact else normal((I, D), 0.3)
-            W = dyadic((I, I), 0, 4) if exact else (gen.random((I, I)) * 0.01).astype(np.float32)
+            W = (torch.randint(0, 4, (I, I), generator=wgen, device=dev).float() / 8 if exact
+                 else torch.rand((I, I), generator=wgen, device=dev) * 0.01)
             A = A_real if A_real is not None else (gen.random((U, I)) < 0.04).astype(np.float32)
             A = A.copy()
             A[0] = 1.0
             A[0, [3, 50, 121]] = 0.0  # user 0: three unseen items, fewer than k
             A[1] = 0.0  # user 1: no interactions, every fused score is +-0
-            ue, ie, A, W = cuda(ue), cuda(ie), cuda(A), cuda(W)
+            ue, ie, A = cuda(ue), cuda(ie), cuda(A)
             seen = A > 0
             ref = None if exact else serve_ref64(ue, ie, A, W, seen)
+            tail = [j for j in range(I) if j not in (3, 50, 121)]
             for k in ks:
+                flavor = f"fused serve {label} k={k} {'dyadic' if exact else 'continuous'}"
                 want = fs.fused_lgcnhs_serve_ref(ue, ie, A, W, seen, k)
                 got = fs.fused_lgcnhs_serve(ue, ie, A, W, seen, k)
+                again = fs.fused_lgcnhs_serve(ue, ie, A, W, seen, k)
                 torch.cuda.synchronize()
-                compare(torch, check, f"fused serve {label} k={k} "
-                        f"{'dyadic' if exact else 'continuous'}", got, want, ref)
+                compare(torch, check, flavor, got, want, ref)
+                check(f"{flavor}: second launch bitwise equal",
+                      torch.equal(got[0], again[0]) and torch.equal(got[1], again[1]))
                 row = got[0][0].tolist()
-                check(f"fused serve {label} k={k} fewer-than-k-unseen user: distinct ids",
-                      len(set(row)) == k and set(row[:3]) == {3, 50, 121}, f"{row[:6]}")
+                check(f"{flavor}: fewer-than-k-unseen user gets distinct ids, its seen items "
+                      "lowest id first",
+                      len(set(row)) == k and set(row[:3]) == {3, 50, 121}.intersection(row[:3])
+                      and len(set(row[:3])) == min(k, 3) and row[3:] == tail[:max(0, k - 3)],
+                      f"{row[:6]}")
+                check(f"{flavor}: user with no interactions scores +-0 as the twin ranks them",
+                      bool((got[1][1] == 0).all()) and torch.equal(got[0][1], want[0][1]))
+            del W
+
+    def serve_w_bits_checks(U, I, D, ks, label):
+        """Fused serving with a W of 20 significant bits, in [0.5, 1): one
+        bf16 part of W holds 8 of them, two hold 16, so a kernel that drops
+        a part of W is off by up to 2^-8 or 2^-16 of F. A has 12 items a
+        user, so each F sum (12 multiples of 2^-20 below 16) is exact in
+        f32 in any order, and G*F is identical to the twin's."""
+        wgen = torch.Generator(device=dev).manual_seed(SEED + 1)
+        W = torch.randint(1 << 19, 1 << 20, (I, I), generator=wgen, device=dev).float() / (1 << 20)
+        A = np.zeros((U, I), np.float32)
+        np.put_along_axis(A, gen.random((U, I)).argsort(axis=1)[:, :12], 1.0, axis=1)
+        ue, ie, A = cuda(dyadic((U, D))), cuda(dyadic((I, D))), cuda(A)
+        for k in ks:
+            compare(torch, check, f"fused serve {label} k={k} W of 20 significant bits",
+                    fs.fused_lgcnhs_serve(ue, ie, A, W, A > 0, k),
+                    fs.fused_lgcnhs_serve_ref(ue, ie, A, W, A > 0, k))
 
     def edge_checks():
         """Ragged shapes: partial user blocks, D off the load batch, k == I,
@@ -346,11 +392,18 @@ def main() -> int:
                     rt.streaming_topk_retrieval(ue, ie, seen, k), want)
             compare(torch, check, f"streaming retrieval {label} tile=k",
                     rt.streaming_topk_retrieval(ue, ie, seen, k, item_tile=k), want)
-            A = cuda((gen.random((U, I)) < 0.2).astype(np.float32))
+            mask = gen.random((U, I)) < 0.2
+            A = cuda(mask.astype(np.float32))
             W = cuda(dyadic((I, I), 0, 4))
             compare(torch, check, f"fused serve {label}",
                     fs.fused_lgcnhs_serve(ue, ie, A, W, A > 0, k),
                     fs.fused_lgcnhs_serve_ref(ue, ie, A, W, A > 0, k))
+            # an A that is not exact in bf16 (12 significand bits) goes in as
+            # three parts; its products and sums are still exact in f32
+            A12 = cuda((mask * gen.integers(1, 4096, (U, I)) / 4096).astype(np.float32))
+            compare(torch, check, f"fused serve {label} A not exact in bf16",
+                    fs.fused_lgcnhs_serve(ue, ie, A12, W, A12 > 0, k),
+                    fs.fused_lgcnhs_serve_ref(ue, ie, A12, W, A12 > 0, k))
 
     def dual_case(label, R, X, Y, exact):
         """dual_matmul against its twin, forward and backward (cotangents
@@ -437,7 +490,6 @@ def main() -> int:
           rt.fits_smem_retrieval(graph.n_items, 64, limit), f"{graph.n_items} items")
     check(f"{BIG_CATALOG} items exceed the one-shot cap",
           not rt.fits_smem_retrieval(BIG_CATALOG, 64, limit))
-    check("ML-1M fused serve fits a block", fs.fits_smem_serve(graph.n_items, 64, limit))
     check("dual_matmul guard: D=64 and D=128 fit, D=129 does not",
           prop.fits_smem_dual(64, limit) and prop.fits_smem_dual(128, limit)
           and not prop.fits_smem_dual(129, limit) and prop.fits_dual(64, dev)
@@ -462,6 +514,30 @@ def main() -> int:
     check("streaming at a 16-entry tile: long lists in shared memory to k=484, then the "
           "running lists in device memory, past k=2424 the merge lists too",
           ws_bytes == [0, 4 * 32 * 2 * 485, 4 * 32 * 2 * 2424, 4 * 40 * 2 * 2425], f"{ws_bytes}")
+    slib = fs._launcher()[0]
+    sizes = [(k, na, fs.serve_block_bytes(k, na, limit),
+              (slib.fused_serve_smem_bytes(k, na, limit),
+               slib.fused_serve_workspace_bytes(k, na, limit)))
+             for k in (1, 100, 108, 109, 1000, 1816, 1817, 3000) for na in (1, 3)]
+    mism = [x for x in sizes if tuple(x[2]) != tuple(x[3])]
+    check("fused serve: serve_block_bytes equals the launcher's shared memory and workspace",
+          not mism, f"{mism}")
+    xs = torch.cat([torch.randn((300, 1000), device=dev) * 1e3,
+                    torch.rand((300, 1000), device=dev) * 1e-20])
+    binary = (torch.rand((300, 1000), device=dev) < 0.3).float()
+    for x0, n, tr in ((xs, 1, False), (xs, 3, False), (xs, 3, True), (binary, 1, False)):
+        x = x0.T if tr else x0
+        flag = torch.zeros(1, dtype=torch.int32, device=dev) if n == 1 else None
+        on_card = fs.split_on_card(x0, n, 608 if tr else 1008, transpose=tr, inexact=flag)
+        plain = fs.bf16_parts(x, n, 608 if tr else 1008)
+        back = on_card.float().sum(0)[:, :x.shape[1]] if n == 3 else None
+        what = "a 0/1 matrix" if x0 is binary else "x^T" if tr else "x"
+        check(f"bf16 split ({n} part{'s' if n > 1 else ''} of {what}) on the "
+              "card == its plain version (bitwise)"
+              + (", and sums back to the input" if n == 3 else
+                 f", flagged {'exact' if x0 is binary else 'not exact'} in bf16"),
+              torch.equal(on_card, plain) and (back is None or torch.equal(back, x))
+              and (flag is None or int(flag) == int(x0 is not binary)))
     check.guard("dual_matmul", dual_checks, R8_slice)
     check.guard("retrieval 384x896", retrieval_checks, 384, 896, 64, (10, 100), "384x896")
     check.guard("retrieval slice", retrieval_checks, graph.n_users, graph.n_items, 64,
@@ -476,6 +552,11 @@ def main() -> int:
     check.guard("serve 384x896", serve_checks, 384, 896, 64, (10, 100), "384x896")
     check.guard("serve slice", serve_checks, graph.n_users, graph.n_items, 64, (10, 100),
                 f"{graph.n_users}x{graph.n_items}x64", A_slice)
+    check.guard("serve past the earlier cap", serve_checks, 384, 20_000, 64, (1, 100, 1000),
+                "384x20000")
+    check.guard("serve W of 20 bits", serve_w_bits_checks, 384, 896, 64, (10, 100), "384x896")
+    check.guard("serve W of 20 bits, slice", serve_w_bits_checks, graph.n_users, graph.n_items,
+                64, (100,), f"{graph.n_users}x{graph.n_items}x64")
     del A_slice
 
     # -- 4. the serving slice end to end ----------------------------------
@@ -485,7 +566,8 @@ def main() -> int:
     ml1m = ["--dataset", "movielens1m", "--env", "prod"]
     big = ["--dataset", "synthetic", "--env", "prod", "--users", "6040",
            "--items", str(BIG_CATALOG), "--interactions", "1000209"]
-    runs = [("SpreadLightGCNOpti", ml1m), ("LightGCNOpti", ml1m), ("LightGCNOpti", big)]
+    runs = [("SpreadLightGCNOpti", ml1m), ("LightGCNOpti", ml1m), ("LightGCNOpti", big),
+            ("SpreadLightGCNOpti", big)]
     cells = {}
     for model, args in runs:
         over = ({} if args is ml1m else
@@ -506,20 +588,35 @@ def main() -> int:
     for fn in kernels.values():
         fn.launches = 0
     rt.streaming_topk_retrieval.merge_launches = 0
-    outputs = []
+    fs.fused_lgcnhs_serve.merge_launches = 0
+    fs.fused_lgcnhs_serve.split_launches = 0
+    outputs, run_launches = [], []
     for model, args in runs:
         t0 = time.perf_counter()
+        before = {name: fn.launches for name, fn in kernels.items()}
         rec = retrieve.main(["--device", "cuda", "--workdir", work, "--model", model, *args])
         outputs.append(rec)
-        print(f"[phase 4] {model} {args[1]}: {rec.shape} in {time.perf_counter() - t0:.2f} s",
-              flush=True)
+        run_launches.append({name: fn.launches - before[name] for name, fn in kernels.items()})
+        print(f"[phase 4] {model} {args[1]}: {rec.shape} in {time.perf_counter() - t0:.2f} s, "
+              f"launches {run_launches[-1]}", flush=True)
     launches = {name: fn.launches for name, fn in kernels.items()}
     merge_launches = rt.streaming_topk_retrieval.merge_launches
-    print(f"[phase 4] launches {launches}, streaming merge {merge_launches}", flush=True)
+    serve_merges = fs.fused_lgcnhs_serve.merge_launches
+    serve_splits = fs.fused_lgcnhs_serve.split_launches
+    print(f"[phase 4] launches {launches}, streaming merge {merge_launches}, fused serve "
+          f"merge {serve_merges}, split {serve_splits}", flush=True)
     for name, n in launches.items():
         check(f"main path launched {name}", n > 0, f"{n} launches")
     check("main path launched the streaming merge over the catalog parts",
           merge_launches > 0, f"{merge_launches} launches")
+    check("main path launched the fused serve's merge and its bf16 split with each call",
+          serve_merges == launches["fused_lgcnhs_serve"]
+          and serve_splits == 2 * launches["fused_lgcnhs_serve"],
+          f"{serve_merges} merges, {serve_splits} splits")
+    for (model, args), n in zip(runs, run_launches):
+        if model == "SpreadLightGCNOpti":
+            check(f"cli/retrieve {model} {args[1]} served through fused_lgcnhs_serve",
+                  n["fused_lgcnhs_serve"] == 1, f"{n}")
 
     timing_inputs = {}
 
@@ -544,18 +641,21 @@ def main() -> int:
             W = hybrid_transfer(A, general_spreading_matrix(A), cfg.hparams.lambda_)
             want = fs.fused_lgcnhs_serve_ref(ue, ie, A, W, seen, K_SLICE)[0]
             ref = serve_ref64(ue, ie, A, W, seen)
-            timing_inputs[timing_key] = (ue, ie, A, W, seen, K_SLICE)
+            if timing_key:  # the 49,410-item catalog's W (9.8 GB) is not kept
+                timing_inputs[timing_key] = (ue, ie, A, W, seen, K_SLICE)
         agreement, gap = tie_equivalence(torch, want, got, ref)
         check(f"{label} tie-equivalent to the plain chain",
               agreement >= AGREEMENT_MIN and gap <= GAP_MAX,
               f"agreement {agreement:.6f}, max relative gap {gap:.3e}")
+        del ref, want
+        torch.cuda.empty_cache()
 
     for (model, args), rec in zip(runs, outputs):
         cfg, g, params = cells[(model, args[1])]
         output_checks(model, args[1], cfg, g, params, rec,
                       "fused_topk_retrieval" if args is ml1m and model == "LightGCNOpti"
                       else "streaming_topk_retrieval" if model == "LightGCNOpti"
-                      else "fused_lgcnhs_serve")
+                      else "fused_lgcnhs_serve" if args is ml1m else None)
 
     def streaming_large_k():
         """The served 49,410-item catalog at k=1000: each user's lists past
@@ -715,6 +815,8 @@ def main() -> int:
             nnz = int((A != 0).sum())
             nbytes = 4 * (U * D + I * D + U * I + I * I) + U * I + 8 * U * k
             flops = 2 * nnz * I + 2 * U * I * D + U * I
+            # the design's own floor: its dense F (three bf16 parts of W)
+            dense_floor_ms = 3 * 2 * U * I * I / PEAK_BF16_FLOP_PER_S * 1e3
         else:
             ue, ie, seen, k = inputs
             U, D = ue.shape
@@ -735,17 +837,25 @@ def main() -> int:
                "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
                "library_ms": None, "matmul_topk_ms": composition_ms}
         extra = ""
-        if name == "streaming_topk_retrieval":  # redesigned: device time from the profiler
-            row.update(merge_launches=merge_launches, k1000_ms=large_k_ms)
+        if name != "fused_topk_retrieval":  # redesigned: device time from the profiler
             by_kernel, _ = device_ms_by_kernel(lambda: fn(*inputs), 5)
             comp_kernels, _ = device_ms_by_kernel(composition, 5)
-            dev_ms = sum(v for n_, v in by_kernel.items() if "streaming_" in n_) or None
+            own = ("streaming_", "part_lists_merge") if name == "streaming_topk_retrieval" \
+                else ("fused_serve_kernel", "part_lists_merge", "bf16_parts")
+            dev_ms = sum(v for n_, v in by_kernel.items() if any(o in n_ for o in own)) or None
             comp_dev = sum(comp_kernels.values()) or None
             row.update(device_ms=dev_ms, matmul_topk_device_ms=comp_dev,
                        bound_share=bound_ms / dev_ms if dev_ms else None)
+            if name == "streaming_topk_retrieval":
+                row.update(merge_launches=merge_launches, k1000_ms=large_k_ms)
+            else:
+                row.update(merge_launches=serve_merges, split_launches=serve_splits)
             extra = (f", device {dev_ms} ms ({row['bound_share']} of the bound; "
                      f"matmul+topk device {comp_dev}), kernels {by_kernel}; "
-                     f"{merge_launches} merge launches; k=1000 {large_k_ms} ms")
+                     + (f"{merge_launches} merge launches; k=1000 {large_k_ms} ms"
+                        if name == "streaming_topk_retrieval" else
+                        f"{serve_merges} merge and {serve_splits} split launches; dense floor "
+                        f"{dense_floor_ms} ms"))
         print(f"[phase 5] {name} U={U} I={I} D={D} k={k}: {ms:.4f} ms (twin {plain_ms:.4f}, "
               f"matmul+topk {composition_ms:.4f}, bound {bound_ms:.4f} by {bound_by}) "
               f"max_abs_err {max_abs_err:.3e}{extra} [{smi}]", flush=True)

@@ -37,7 +37,7 @@ def main(argv=None) -> np.ndarray:
     parser.add_argument(
         "--serve-exact", action="store_true",
         help="fusion models: serve through the plain f32 chain instead of "
-        "the fused kernel, at any catalog size",
+        "the fused kernel (the kernel serves any catalog size too)",
     )
     args = parser.parse_args(argv)
     device = resolve_device(args.device)

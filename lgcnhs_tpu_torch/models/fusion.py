@@ -48,10 +48,10 @@ def serve_fused(
     exact: bool = False,
 ) -> np.ndarray:
     """(U, k) int32 recommendations of the fused LGCNHS score: the fused
-    kernel on CUDA, the plain chain on the CPU. ``exact=True`` (CLI
-    ``--serve-exact``) takes the plain chain on any device and catalog size.
-    Ties go to the lowest index (``recommend_fused``'s reference ranker is
-    not part of this slice)."""
+    kernel on CUDA at any catalog size, the plain chain on the CPU.
+    ``exact=True`` (CLI ``--serve-exact``) is the precision switch: the
+    plain f32 chain on any device. Ties go to the lowest index
+    (``recommend_fused``'s reference ranker is not part of this slice)."""
     device = params.user_emb.device
     with stage_timer(f"{cfg.model} fused serving done", get_logger()):
         A = torch.from_numpy(

@@ -103,53 +103,6 @@ struct Layout {
   static_assert(!kMma || kNW >= 1, "a warp owns at least one n8 block");
 };
 
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared; zero-filled (src not read) when !valid.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p))
-               : "memory");
-}
-__device__ __forceinline__ void ldsm_x4_t(unsigned (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p))
-               : "memory");
-}
-__device__ __forceinline__ void ldsm_x2_t(unsigned (&r)[2], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1])
-               : "r"(smem_addr(p))
-               : "memory");
-}
-
-// c += a (16x16, row-major) b (16x8, column-major), bf16 in, f32 sums.
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4], unsigned b0,
-                                         unsigned b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
-      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(int8_t v) { return static_cast<float>(v); }
 

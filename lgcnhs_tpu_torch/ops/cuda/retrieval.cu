@@ -100,35 +100,6 @@ constexpr int kDC = 16;     // depth of one staged operand slice
 constexpr int kSlices = 3;  // staged slices in flight
 static_assert(kSU == 4 * kWarps, "a warp scores and selects for 4 users");
 
-__device__ __forceinline__ unsigned smem_u32(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-// 16 bytes global -> shared; zero-filled (src not read) when !valid.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
-               "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-
-// Rank of (xkey, xid) among the m entries of a list sorted in rank order:
-// how many of them rank before it.
-__device__ __forceinline__ int rank_in(const int* key, const int* id, int m, int xkey,
-                                       int xid) {
-  int lo = 0, hi = m;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (ranks_before(key[mid], id[mid], xkey, xid))
-      lo = mid + 1;
-    else
-      hi = mid;
-  }
-  return lo;
-}
-
-// Where a block's long lists (below) live: all in shared memory; the
-// running lists in device memory; the merge lists there too.
-enum ListPlace : int { kListsShared = 0, kRunGlobal = 1, kAllGlobal = 2 };
-
 // Memory of one streaming block (ops/cuda/retrieval.py stream_smem_bytes).
 // In shared memory: kSlices operand slices, four counters a user, each
 // user's survivor area (kStep + slack entries: order keys, ids) and each
@@ -144,9 +115,10 @@ struct StreamSmem {
   float* is;  // [kSlices][kDC][kStep] item slices
   int *run_n, *new_n, *thr_key, *thr_id;
   int *new_key, *new_id, *sc_key, *sc_id;  // always in shared memory
-  int *mg_key, *mg_id, *run_key, *run_id;  // the long lists
+  LongLists<kSU> lists;
   int sc_len;
-  __device__ StreamSmem(unsigned char* base, int* ws, int place, int k, int area) {
+  __device__ StreamSmem(unsigned char* base, int* ws, int place, int k, int area)
+      : lists(reinterpret_cast<int*>(base + near_bytes(k, area)), ws, place, k) {
     us = reinterpret_cast<float*>(base);
     is = us + kSlices * kDC * kSU;
     run_n = reinterpret_cast<int*>(is + kSlices * kDC * kStep);
@@ -158,11 +130,6 @@ struct StreamSmem {
     new_id = new_key + kSU * area;
     sc_key = new_id + kSU * area;
     sc_id = sc_key + kWarps * sc_len;
-    int* shared_lists = sc_id + kWarps * sc_len;
-    mg_key = place == kAllGlobal ? ws : shared_lists;
-    mg_id = mg_key + kWarps * k;
-    run_key = place == kRunGlobal ? ws : mg_id + kWarps * k;
-    run_id = run_key + kSU * k;
   }
   // shared memory before the long lists
   __host__ __device__ static size_t near_bytes(int k, int area) {
@@ -170,118 +137,30 @@ struct StreamSmem {
     return 4 * (kSlices * (size_t)kDC * (kSU + kStep) + 4 * kSU + (size_t)kSU * 2 * area +
                 (size_t)kWarps * 2 * sc);
   }
-  // ints of the long lists in shared memory and in the workspace
-  __host__ __device__ static size_t shared_list_ints(int place, int k) {
-    return place == kListsShared ? (size_t)(kSU + kWarps) * 2 * k
-                                 : place == kRunGlobal ? (size_t)kWarps * 2 * k : 0;
-  }
   __host__ __device__ static size_t ws_ints(int place, int k) {
-    return (size_t)(kSU + kWarps) * 2 * k - shared_list_ints(place, k);
+    return LongLists<kSU>::ws_ints(place, k);
   }
   static size_t smem_bytes(int place, int k, int area) {
-    return near_bytes(k, area) + 4 * shared_list_ints(place, k);
+    return near_bytes(k, area) + 4 * LongLists<kSU>::shared_ints(place, k);
   }
-  // the first place whose shared memory fits `limit`; -1 when none does
   static int place(int k, int area, int limit) {
-    for (int p = kListsShared; p <= kAllGlobal; ++p)
-      if (smem_bytes(p, k, area) <= (size_t)limit) return p;
-    return -1;
+    return LongLists<kSU>::place(near_bytes(k, area), k, limit);
   }
 };
 
-// One warp folds user u's survivors into its running top-k, in two
-// counted steps rather than k selection passes:
-// - a survivor's rank among the survivors is the number that rank before
-//   it (ids are distinct, so ranks are too); the best min(survivors, k)
-//   land at their ranks in the warp's ranked list, now sorted;
-// - the merge of two sorted lists: running entry t goes to t + c(t), c(t)
-//   the ranked survivors before it (a binary search of that short list);
-//   survivors c(t) .. c(t+1) - 1 rank after entries 0..t and before t + 1,
-//   so they follow entry t directly. A lane takes entries lane, lane + 32,
-//   ...; entry t + 1's rank is lane + 1's (lane 31: lane 0's next), and
-//   each pass loads the entries of the pass after next, so a load's
-//   latency hides behind a pass. Into the warp's merge list, then copied
-//   back.
+// One warp folds user u's survivors into its running top-k: ranks them
+// (rank_entries), then merges them in (merge_ranked).
 __device__ void fold_survivors(StreamSmem& sm, int u, int k, int area) {
-  const unsigned full = 0xffffffffu;
-  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int w = threadIdx.x >> 5;
   const int m = sm.new_n[u];
   if (m == 0) return;
-  const int* nk = sm.new_key + u * area;
-  const int* ni = sm.new_id + u * area;
-  int* rk = sm.run_key + u * k;
-  int* ri = sm.run_id + u * k;
   int* sk = sm.sc_key + w * sm.sc_len;
   int* si = sm.sc_id + w * sm.sc_len;
-  int* mk = sm.mg_key + w * k;
-  int* mi = sm.mg_id + w * k;
-  const int nr = sm.run_n[u], sel = min(m, k);  // m <= area, so sel <= sc_len
-  for (int p = lane; p < m; p += 32) {
-    const int key = nk[p], id = ni[p];
-    int r = 0;
-    for (int q = 0; q < m; ++q) r += ranks_before(nk[q], ni[q], key, id);
-    if (r < sel) {
-      sk[r] = key;
-      si[r] = id;
-    }
-  }
-  __syncwarp();
-  const int total = min(k, nr + sel);
-  int key = 0, id = 0, key2 = 0, id2 = 0, c = sel;
-  if (lane < nr) {
-    key = rk[lane];
-    id = ri[lane];
-  }
-  if (lane + 32 < nr) {
-    key2 = rk[lane + 32];
-    id2 = ri[lane + 32];
-  }
-  if (lane < nr) c = rank_in(sk, si, sel, key, id);
-  const int c0 = __shfl_sync(full, c, 0);  // survivors before entry 0 (all when nr = 0)
-  for (int t = lane; t - lane < nr; t += 32) {
-    int key3 = 0, id3 = 0;
-    if (t + 64 < nr) {
-      key3 = rk[t + 64];
-      id3 = ri[t + 64];
-    }
-    const int c2 = t + 32 < nr ? rank_in(sk, si, sel, key2, id2) : sel;
-    int c1 = __shfl_down_sync(full, c, 1);
-    const int c2_lane0 = __shfl_sync(full, c2, 0);
-    if (lane == 31) c1 = c2_lane0;
-    if (t < nr) {
-      if (t + c < k) {
-        mk[t + c] = key;
-        mi[t + c] = id;
-      }
-      for (int j = c; j < c1 && j + t + 1 < k; ++j) {
-        mk[j + t + 1] = sk[j];
-        mi[j + t + 1] = si[j];
-      }
-    }
-    key = key2;
-    id = id2;
-    c = c2;
-    key2 = key3;
-    id2 = id3;
-  }
-  for (int j = lane; j < c0; j += 32) {  // j < sel <= k
-    mk[j] = sk[j];
-    mi[j] = si[j];
-  }
-  __syncwarp();
-  for (int t = lane; t < total; t += 32) {
-    rk[t] = mk[t];
-    ri[t] = mi[t];
-  }
-  __syncwarp();
-  if (lane == 0) {
-    sm.run_n[u] = total;
-    sm.new_n[u] = 0;
-    if (total == k) {  // from now on only what ranks before the k-th can enter
-      sm.thr_key[u] = mk[k - 1];
-      sm.thr_id[u] = mi[k - 1];
-    }
-  }
+  rank_entries(sm.new_key + u * area, sm.new_id + u * area, m, k, sk, si);
+  merge_ranked(sk, si, min(m, k), sm.lists.run_key + u * k, sm.lists.run_id + u * k,
+               sm.run_n + u, sm.thr_key + u, sm.thr_id + u, sm.lists.mg_key + w * k,
+               sm.lists.mg_id + w * k, k);
+  if ((threadIdx.x & 31) == 0) sm.new_n[u] = 0;
   __syncwarp();
 }
 
@@ -330,7 +209,7 @@ __global__ void __launch_bounds__(kThreads, 2)
         cp_async16(ub + r * kSU + q, ok ? uT + (size_t)(d0 + r) * ldu + u0 + q : uT, ok);
       }
     }
-    asm volatile("cp.async.commit_group;\n" ::: "memory");  // empty past the end
+    cp_async_commit();  // empty past the end
   };
   // thread: users w*4 + r (r < 4), items lane*4 + c (c < 4) of the step;
   // a user's survivors, running list and threshold belong to warp w alone
@@ -338,7 +217,7 @@ __global__ void __launch_bounds__(kThreads, 2)
   uint8_t flag[4][4];
   for (int c = 0; c < kSlices - 1; ++c) load(c);
   for (int c = 0; c < nc; ++c) {
-    asm volatile("cp.async.wait_group %0;\n" ::"n"(kSlices - 2) : "memory");
+    cp_async_wait<kSlices - 2>();
     __syncthreads();  // slice c landed; slice c - 1 is no longer read
     load(c + kSlices - 1);
     const int st = c / nd, dc = c % nd;
@@ -403,39 +282,17 @@ __global__ void __launch_bounds__(kThreads, 2)
       if (last || sm.new_n[u] > slack) fold_survivors(sm, u, k, area);
     }
   }
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  cp_async_wait<0>();
   for (int u = w * 4; u < w * 4 + 4; ++u) {
     if (u0 + u >= U) continue;
     const size_t o = ((size_t)part * U + u0 + u) * k;
     const int n = sm.run_n[u];
     for (int t = lane; t < k; t += 32) {
       const bool real = t < n;
-      out_idx[o + t] = real ? sm.run_id[u * k + t] : INT_MAX;
-      out_val[o + t] = real ? key_value(sm.run_key[u * k + t]) : knocked_out();
+      out_idx[o + t] = real ? sm.lists.run_id[u * k + t] : INT_MAX;
+      out_val[o + t] = real ? key_value(sm.lists.run_key[u * k + t]) : knocked_out();
     }
   }
-}
-
-// The k best of each user's `parts` ranked part lists (one warp a user),
-// in rank order; knocked-out entries are set to -inf in the part lists.
-__global__ void __launch_bounds__(kThreads)
-    streaming_merge_kernel(int32_t* __restrict__ part_idx, float* __restrict__ part_val,
-                           int U, int k, int parts, int32_t* __restrict__ idx,
-                           float* __restrict__ vals) {
-  const int u = blockIdx.x * kWarps + (threadIdx.x >> 5);
-  if (u >= U) return;
-  auto at = [&](int p) { return ((size_t)(p / k) * U + u) * k + p % k; };
-  warp_select(
-      parts * k, k,
-      [&](int p, int& key, int& id) {
-        key = order_key(part_val[at(p)]);
-        id = part_idx[at(p)];
-      },
-      [&](int p) { part_val[at(p)] = knocked_out(); },
-      [&](int t, int key, int id) {
-        idx[(size_t)u * k + t] = id;
-        vals[(size_t)u * k + t] = key_value(key);
-      });
 }
 
 }  // namespace
@@ -480,8 +337,7 @@ extern "C" int streaming_topk_retrieval_launch(const float* uT, int ldu, const f
            : place == kRunGlobal ? launch(streaming_topk_kernel<kRunGlobal>)
                                  : launch(streaming_topk_kernel<kAllGlobal>);
   if (rc != 0 || parts == 1) return rc;
-  return lgcnhs_launch(streaming_merge_kernel, (U + kWarps - 1) / kWarps, 0, stream, part_idx,
-                       part_val, U, k, parts, idx, vals);
+  return lgcnhs_launch_part_merge(part_idx, part_val, U, k, parts, smem_limit, idx, vals, stream);
 }
 
 // Shared memory of one streaming block with all its long lists in it.

@@ -138,18 +138,26 @@ def stream_parts(n_users: int, n_items: int, n_sms: int) -> Tuple[int, int]:
     at least 90% evenly (blocks / (SMs x the most blocks an SM gets)), at
     most 32, then rounded to whole steps per part; the user groups alone
     give 189 blocks at 6040 users, 1.4 an SM on 132 SMs."""
-    groups = -(-n_users // STREAM_USERS)
-    steps = -(-n_items // STREAM_STEP)
+    return spread_parts(-(-n_users // STREAM_USERS), -(-n_items // STREAM_STEP), STREAM_STEP,
+                        n_sms)
+
+
+def spread_parts(groups: int, steps: int, step_len: int, slots: int) -> Tuple[int, int]:
+    """(parts, part_len): a catalog of ``steps`` steps of ``step_len`` items
+    split into parts, each part a block for each of ``groups`` user groups.
+    The fewest parts (at most 32) whose blocks fill ``slots`` at least 90%
+    evenly (blocks / (slots x the waves they take)), or the most even, then
+    rounded to whole steps per part."""
     best = (0.0, 1)
     for parts in range(1, min(32, steps) + 1):
         blocks = groups * parts
-        even = blocks / (-(-blocks // n_sms) * n_sms)
+        even = blocks / (-(-blocks // slots) * slots)
         if even > best[0] + 1e-9:
             best = (even, parts)
         if even >= 0.9:
             break
     per = -(-steps // best[1])
-    return -(-steps // per), per * STREAM_STEP
+    return -(-steps // per), per * step_len
 
 
 def fused_topk_retrieval(

@@ -52,7 +52,7 @@ def hybrid_transfer(A: torch.Tensor, W_gen: torch.Tensor, lam) -> torch.Tensor:
     lam = torch.as_tensor(lam, dtype=A.dtype, device=A.device)
     k_item = _item_degrees(A)
     denom = torch.pow(k_item, 1.0 - lam)[:, None] * torch.pow(k_item, lam)[None, :]
-    denom = torch.where(denom == 0, torch.ones_like(denom), denom)
+    denom.masked_fill_(denom == 0, 1.0)  # in place: no second (I, I) temporary
     return W_gen / denom
 
 

@@ -9,7 +9,9 @@ kernel repeats an id in that tail. Continuous inputs are held to
 tie-equivalence (agreement >= 0.98, mismatched slots within 5e-4 relative
 under an f64 reference).
 """
+import inspect
 import os
+import re
 import sys
 
 import jax.numpy as jnp
@@ -134,7 +136,64 @@ def test_cpu_tensors_take_the_twin_and_count_no_launch():
     assert tserve.fused_lgcnhs_serve.launches == before
 
 
-def test_guard_sizes_against_the_block_limit():
-    h100 = 232_448  # cudaDevAttrMaxSharedMemoryPerBlockOptin on an H100
-    assert tserve.fits_smem_serve(3706, 64, h100)  # ML-1M
-    assert not tserve.fits_smem_serve(20_000, 64, h100)
+H100_SMEM_OPTIN = 232_448  # cudaDevAttrMaxSharedMemoryPerBlockOptin on an H100
+
+
+@pytest.mark.parametrize("k", [1, 100, 1000])
+def test_block_memory_does_not_grow_with_the_catalog(k):
+    """The kernel streams the catalog, so one block's memory is the same at
+    3706 items as at 49,410 because nothing that sizes it takes the catalog
+    size: not ``serve_block_bytes``, nor the launcher's exports in
+    ``fusion_serve.cu``, which the chip smoke holds it equal to. The block
+    fits an H100 at every k (long lists past shared memory go to the
+    workspace)."""
+    assert list(inspect.signature(tserve.serve_block_bytes).parameters) == \
+        ["k", "a_parts", "smem_limit"]
+    with open(os.path.join(os.path.dirname(tserve.__file__), "fusion_serve.cu")) as f:
+        src = f.read()
+    for name in ("fused_serve_smem_bytes", "fused_serve_workspace_bytes",
+                 "fused_serve_resident_blocks"):
+        params = re.search(rf'extern "C" [\w ]+ {name}\(([^)]*)\)', src).group(1)
+        assert params == "int k, int na, int smem_limit", (name, params)
+    for a_parts in (1, 3):
+        smem, _ = tserve.serve_block_bytes(k, a_parts, H100_SMEM_OPTIN)
+        assert smem <= H100_SMEM_OPTIN
+    smem, ws = tserve.serve_block_bytes(k, 1, H100_SMEM_OPTIN)
+    assert ws == (0 if k == 1 else 4 * 128 * 2 * k)  # past k=1 the running lists, 1 KB per k
+    if k == 100:  # one block an SM at the main path's k
+        assert smem == 153_600
+
+
+@pytest.mark.parametrize("what", ["W", "A not exact in bf16"])
+def test_bf16_parts_sum_back_to_the_input_bitwise(what):
+    """Three bf16 parts, each the next 8 significand bits, sum back to the
+    f32 input exactly (normal floats); columns past the input are zero. One
+    part is the input rounded, exact where the input is (a 0/1 A)."""
+    rng = np.random.default_rng(7)
+    if what == "W":
+        x = (rng.random((50, 37)) * 10.0 ** rng.integers(-30, 30, (50, 37))).astype(np.float32)
+    else:
+        x = ((rng.random((50, 37)) < 0.3) * rng.integers(1, 4096, (50, 37)) / 4096)
+        x = x.astype(np.float32)
+        assert not np.array_equal(torch.from_numpy(x).bfloat16().float().numpy(), x)
+    xt = torch.from_numpy(x)
+    parts = tserve.bf16_parts(xt, 3, 40)
+    assert parts.dtype == torch.bfloat16 and tuple(parts.shape) == (3, 50, 40)
+    assert torch.equal(parts.float().sum(0)[:, :37], xt)
+    assert torch.equal((parts[0].float() + parts[1].float()) + parts[2].float(),
+                       parts.float().sum(0))
+    assert not parts[:, :, 37:].any()
+    binary = torch.from_numpy((rng.random((50, 37)) < 0.3).astype(np.float32))
+    assert torch.equal(tserve.bf16_parts(binary, 1, 40)[0].float()[:, :37], binary)
+
+
+def test_serve_operands_split_w_transposed_in_three_and_binary_a_in_one():
+    ue, ie, A, W, _ = _problem(exact=False)
+    ops = tserve.serve_operands(*map(torch.from_numpy, (ue, ie, A, W)))
+    ld = 192  # I = 190 rounded up to whole 128-byte rows of bf16
+    assert tuple(ops.a_parts.shape) == (1, U, ld) and tuple(ops.w_parts.shape) == (3, I, ld)
+    assert ops.uT.shape[1] % 4 == 0 and ops.itT.shape[1] % 4 == 0
+    assert torch.equal(ops.w_parts.float().sum(0)[:, :I], torch.from_numpy(W).T)
+    A_half = torch.from_numpy(A) * (1 + 2.0 ** -10)  # 11 significand bits
+    assert tserve.serve_operands(*map(torch.from_numpy, (ue, ie)), A_half,
+                                 torch.from_numpy(W)).a_parts.shape[0] == 3

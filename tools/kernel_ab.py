@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """A/B timing of CUDA kernel source variants on one card.
 
-    python3 tools/kernel_ab.py [--kinds fused,streaming,serve,dual] [--k K] DIR [DIR ...]
+    python3 tools/kernel_ab.py [--kinds fused,streaming,serve,dual] [--k K] [--items N] DIR [DIR ...]
 
 Each DIR holds a variant of some of ``lgcnhs_tpu_torch/ops/cuda``'s
 ``retrieval.cu``, ``fusion_serve.cu`` and ``propagation.cu`` (with the
@@ -13,14 +13,25 @@ without ``dual_matmul_smem_bytes``); it is then given that copy. Likewise a
 ``retrieval.cu`` with the earlier streaming launcher (item tiles of at least
 k items; no ``streaming_workspace_bytes``) gets the tile its package picked: the
 widest power of two up to 2048 whose block fits (2048 at k=100).
-A kind is timed for the variants that have its source.
+A ``fusion_serve.cu`` with the earlier launcher (A as CSR, f32 W; no
+``fused_serve_smem_bytes``) gets A in CSR, built once; one with the
+tensor-core launcher gets A and W as bf16 parts, split once
+(``ops/cuda/fusion_serve.serve_operands``), and is also held bitwise
+against the twin with a W of 20 significant bits (``chip_smoke.py``'s check
+that the kernel uses every bf16 part of W). A kind is timed for the variants
+that have its source; fused serving's bound, the plain twin and the
+matmul+topk composition are timed once beside the variants.
 
 Every variant is built with the package's nvcc flags (``DIR:tile=N`` sets
 the streaming kernel's ``item_tile``, else it is ``pick_stream_tile(k)``), checked
 against the plain twins, and timed at the main path's shapes (k=100, or ``--k``): one-shot
 retrieval, fused serving and ``dual_matmul`` (int8 R, bf16 X and Y, D=64)
 at ML-1M scale (6040 x 3706), streaming retrieval over a 50k-item synthetic
-catalog. Rounds run the variants in A..Z, Z..A order, three times, so every
+catalog. ``--items N`` serves over a synthetic catalog instead, drawn as
+``cli/retrieve --dataset synthetic --items N`` draws it (6040 users,
+1,000,209 interactions; N = 50,000 keeps the 49,410 items that
+``chip_smoke.py`` serves); the earlier serving launcher is
+skipped where its rows do not fit a block. Rounds run the variants in A..Z, Z..A order, three times, so every
 variant is timed next to every other on the same card; each printed time
 is the median of 10 CUDA-event timings of one launch, then the device time
 of one launch from ``torch.profiler`` over 20 launches.
@@ -49,9 +60,55 @@ from lgcnhs_tpu_torch.ops.diffusion import general_spreading_matrix, hybrid_tran
 from lgcnhs_tpu_torch.train.trainer import device_binary_factors  # noqa: E402
 
 K = 100  # --k
+ITEMS = 0  # --items: serve over a synthetic catalog of this many items
 P, INT = ctypes.c_void_p, ctypes.c_int
 SOURCES = {"fused": "retrieval", "streaming": "retrieval", "serve": "fusion_serve",
            "dual": "propagation"}
+# NVIDIA H100 SXM peaks (NVIDIA's data sheet), as chip_smoke.py's bound
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_FLOP_PER_S = 67e12
+
+
+def wide_w_problem(dev, U=384, I=896, D=64):
+    """(user_emb, item_emb, A, W, seen): W of 20 significant bits, 12 items
+    a user in A, dyadic tables, so that G*F is exact in f32 in any
+    summation order and a kernel that drops a bf16 part of W differs from
+    the twin."""
+    g = torch.Generator(device=dev).manual_seed(1)
+    W = torch.randint(1 << 19, 1 << 20, (I, I), generator=g, device=dev).float() / (1 << 20)
+    A = torch.zeros((U, I), device=dev).scatter_(
+        1, torch.rand((U, I), generator=g, device=dev).argsort(dim=1)[:, :12], 1.0)
+    ue = torch.randint(-4, 5, (U, D), generator=g, device=dev).float() / 8
+    ie = torch.randint(-4, 5, (I, D), generator=g, device=dev).float() / 8
+    return ue, ie, A, W, A > 0
+
+
+def events_ms(fn, reps=3):
+    """Median of ``reps`` CUDA-event timings of fn, after one warm-up."""
+    fn()
+    times = []
+    for _ in range(reps):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return sorted(times)[reps // 2]
+
+
+def all_device_ms(fn, n=3):
+    """Device ms of one call of fn, every kernel counted (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    return sum((getattr(ev, "self_device_time_total", 0.0) or 0.0) for ev in prof.key_averages()
+               if getattr(ev, "device_type", None) == torch.autograd.DeviceType.CUDA) / 1e3 / n
 
 
 def compile_variant(n, spec):
@@ -94,12 +151,20 @@ def main(variants, kinds):
     print(f"card: {smi}", flush=True)
 
     g, ue, ie, seen = slice_inputs(dev, "movielens1m", {})
-    A = torch.from_numpy(interaction_matrix(g.n_users, g.n_items, g.train, g.val)).to(dev)
+    if ITEMS:  # serving over a synthetic catalog of ITEMS items
+        gs, ues, ies, seens = slice_inputs(
+            dev, "synthetic", {"synthetic_users": 6040, "synthetic_items": ITEMS,
+                               "synthetic_interactions": 1_000_209})
+    else:
+        gs, ues, ies, seens = g, ue, ie, seen
+    A = torch.from_numpy(interaction_matrix(gs.n_users, gs.n_items, gs.train, gs.val)).to(dev)
     W = hybrid_transfer(A, general_spreading_matrix(A), 0.6)
+    serve_ops = fs.serve_operands(ues, ies, A, W) if "serve" in kinds else None
+    serve_old = (ues, ies.T.contiguous(), seens.view(torch.uint8))
     rows, cols = A.nonzero(as_tuple=True)
     a_val, a_col = A[rows, cols].contiguous(), cols.to(torch.int32)
-    a_ptr = torch.zeros(g.n_users + 1, dtype=torch.int32, device=dev)
-    a_ptr[1:] = torch.cumsum(torch.bincount(rows, minlength=g.n_users), 0)
+    a_ptr = torch.zeros(gs.n_users + 1, dtype=torch.int32, device=dev)
+    a_ptr[1:] = torch.cumsum(torch.bincount(rows, minlength=gs.n_users), 0)
     R8 = device_binary_factors(g.n_users, g.n_items, g.train, dev)[0]
     R8p, R8T = prop.pad_for_dual(R8), R8.t().contiguous()
     X, Y = ie.to(torch.bfloat16), ue.to(torch.bfloat16)
@@ -196,7 +261,15 @@ def main(variants, kinds):
             fn.argtypes = [P, P, P, INT, INT, INT, INT, INT, P, P, P]
             rc = fn(u.data_ptr(), itT.data_ptr(), s8.data_ptr(), U, I, D, K, old_tile,
                     idx.data_ptr(), vals.data_ptr(), stream)
-        else:
+        elif hasattr(lib["fusion_serve"], "fused_serve_smem_bytes"):  # tensor-core launcher
+            flib = lib["fusion_serve"]
+            got = fs.launch_kernel(flib, fs.bind(flib), serve_ops, seens, K)
+            return got[0], got[1]
+        else:  # the earlier launcher: A as CSR, f32 W
+            u, itT, s8 = serve_old
+            U, I = s8.shape
+            idx = torch.empty((U, K), dtype=torch.int32, device=dev)
+            vals = torch.empty((U, K), dtype=torch.float32, device=dev)
             fn = lib["fusion_serve"].fused_lgcnhs_serve_launch
             fn.argtypes = [P] * 7 + [INT] * 4 + [P] * 3
             rc = fn(u.data_ptr(), itT.data_ptr(), a_ptr.data_ptr(), a_col.data_ptr(),
@@ -208,20 +281,11 @@ def main(variants, kinds):
 
     twins = {"fused": lambda: rt.fused_topk_retrieval_ref(ue, ie, seen, K),
              "streaming": lambda: rt.fused_topk_retrieval_ref(ueb, ieb, seenb, K),
-             "serve": lambda: fs.fused_lgcnhs_serve_ref(ue, ie, A, W, seen, K),
+             "serve": lambda: fs.fused_lgcnhs_serve_ref(ues, ies, A, W, seens, K),
              "dual": lambda: prop.dual_matmul_ref(R8, X, Y)}
 
     def median_ms(lib, kind, reps=10):
-        launch(lib, kind)
-        times = []
-        for _ in range(reps):
-            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            a.record()
-            launch(lib, kind)
-            b.record()
-            b.synchronize()
-            times.append(a.elapsed_time(b))
-        return sorted(times)[reps // 2]
+        return events_ms(lambda: launch(lib, kind), reps)
 
     def device_ms(lib, kind, n=20):
         """Device time of one launch's kernels, from torch.profiler."""
@@ -253,6 +317,9 @@ def main(variants, kinds):
 
     for kind in kinds:
         have = [v for v in variants if SOURCES[kind] in libs[v]]
+        if kind == "serve":  # the earlier kernel keeps 4 users' rows in a block
+            have = [v for v in have if hasattr(libs[v]["fusion_serve"], "fused_serve_smem_bytes")
+                    or 4 * 4 * (64 + W.shape[0]) <= limit]
         if not have:
             continue
         want = twins[kind]()
@@ -269,6 +336,16 @@ def main(variants, kinds):
             print(f"{kind} {v}: index agreement with twin "
                   f"{float((idx == wi).float().mean()):.6f}, max |value diff| "
                   f"{float((vals - wv).abs().max()):.3e}", flush=True)
+            if kind == "serve" and hasattr(libs[v]["fusion_serve"], "fused_serve_smem_bytes"):
+                flib = libs[v]["fusion_serve"]
+                wide = wide_w_problem(dev)
+                gi, gv, _ = fs.launch_kernel(flib, fs.bind(flib), fs.serve_operands(*wide[:4]),
+                                             wide[4], K)
+                ti, tv = fs.fused_lgcnhs_serve_ref(*wide, K)
+                print(f"serve {v}: W of 20 significant bits, bitwise equal to twin: "
+                      f"{torch.equal(gi, ti) and torch.equal(gv, tv)} "
+                      f"({int((gi != ti).sum())} index, {int((gv != tv).sum())} value mismatches)",
+                      flush=True)
         times = {v: [] for v in have}
         dev_times = {v: [] for v in have}
         for _ in range(3):
@@ -280,16 +357,47 @@ def main(variants, kinds):
                   f"{' '.join(f'{t:.4f}' for t in dev_times[v])}; by kernel "
                   f"{ {k: round(t, 4) for k, t in split[(v, kind)].items()} } [{smi}]",
                   flush=True)
+        if kind == "serve":
+            serve_baselines(ues, ies, A, W, seens, smi)
+
+
+def serve_baselines(ue, ie, A, W, seen, smi):
+    """Fused serving's bound on these inputs (chip_smoke.py's: each input
+    read once, the lists written once; 2 nnz(A) I + 2 U I D + U I
+    operations at the f32 peak), and the ms of the plain twin and of the
+    matmul+topk composition (median of 3 CUDA-event timings; device ms
+    from torch.profiler, every kernel of a call)."""
+    U, D = ue.shape
+    I = ie.shape[0]
+    nnz = int((A != 0).sum())
+    t_bytes = (4 * (U * D + I * D + U * I + I * I) + U * I + 8 * U * K) / PEAK_BYTES_PER_S
+    t_ops = (2 * nnz * I + 2 * U * I * D + U * I) / PEAK_F32_FLOP_PER_S
+    by = "bytes" if t_bytes >= t_ops else "operations"
+    print(f"serve bound U={U} I={I} D={D} k={K} nnz(A)={nnz}: {max(t_bytes, t_ops) * 1e3:.4f} ms "
+          f"by {by} (bytes {t_bytes * 1e3:.4f} ms, operations {t_ops * 1e3:.4f} ms); dense tile "
+          f"work of the design 3 x 2 U I^2 = {6 * U * I * I / 1e12:.2f} TFLOP [{smi}]", flush=True)
+
+    def composition():
+        fused = torch.matmul(ue, ie.T) * torch.matmul(A, W)
+        return torch.topk(fused.masked_fill_(seen, fs.EXCLUDED), K, dim=1)
+
+    for name, fn in (("matmul+topk", composition),
+                     ("twin", lambda: fs.fused_lgcnhs_serve_ref(ue, ie, A, W, seen, K))):
+        ms = events_ms(fn)
+        print(f"serve {name} U={U} I={I}: {ms:.4f} ms; device {all_device_ms(fn):.4f} ms [{smi}]",
+              flush=True)
+        torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--kinds", default="fused,streaming,serve,dual")
     parser.add_argument("--k", type=int, default=K)
+    parser.add_argument("--items", type=int, default=0)
     parser.add_argument("variants", nargs="*")
     args = parser.parse_args()
     if not args.variants or not torch.cuda.is_available():
         print(__doc__)
         sys.exit(2)
-    K = args.k
+    K, ITEMS = args.k, args.items
     main(args.variants, [k for k in args.kinds.split(",") if k])
