@@ -12,53 +12,58 @@ neither JAX nor ``lgcnhs_tpu``. Phases:
 3. Kernels against their plain twins (the checks of ``tests/tpu_smoke.py``
    on the card): identical indices and values on inputs whose scores are
    exact in f32, tie-equivalence (agreement >= 0.98, mismatched slots within
-   5e-4 relative under an f64 reference) on continuous inputs; retrieval at
-   k=10/100 with sub-sentinel users, streaming retrieval at 50k items and at
-   D=1024, fused serving with a fewer-than-k-unseen user and a user with no
-   interactions (a second launch bitwise equal), all at the slice's
-   6040 x 3706 x 64 too, fused serving also over 20,000 items (past the
-   earlier kernel's shared-memory cap) at k=1/100/1000, with a W of 20
-   significant bits (which every bf16 part of W must carry), and ragged
-   shapes (partial user blocks, k == I, I below a warp, k above 128, an A
-   that is not exact in bf16). The fused serving kernel's block memory
-   against its Python sizing, its bf16 split of A and W against the plain
-   split and its flag for an A not exact in bf16. ``dual_matmul`` (training) for its four
+   5e-4 relative under an f64 reference) on continuous inputs. Retrieval
+   (one kernel in place of both Pallas kernels) at k=1/100/1000 at the
+   ML-100K (943 x 1682) and ML-1M (6040 x 3706) shapes, at k=10/100 at
+   384 x 896, at k=100/1000 over 50k items and at D=1024, and at
+   k=1/128/129/407/408/1000/3000 over catalogs off its 128-item steps (the
+   edges of its in-register merges and of its lists in shared memory;
+   running and merge lists in device memory), with sub-sentinel users and
+   a second launch bitwise equal to the first. Fused serving
+   with a fewer-than-k-unseen user and a user with no interactions (a
+   second launch bitwise equal), at the slice's 6040 x 3706 x 64 too, also
+   over 20,000 items (past the earlier kernel's shared-memory cap) at
+   k=1/100/1000, with a W of 20 significant bits (which every bf16 part of
+   W must carry), and ragged shapes (partial user blocks, k == I, I below a
+   warp, k above 128, an A that is not exact in bf16). Each kernel's block
+   memory against its Python sizing (and the retrieval kernel's blocks an
+   SM as its launcher reports them), the retrieval route,
+   the fused serving kernel's bf16 split of A and W against the plain
+   split and its flag for an A not exact in bf16. ``dual_matmul``
+   (training) for its four
    dtype pairs on the slice's 6040 x 3706 train incidence at D=64, forward
    and backward: bitwise equal on dyadic inputs, within 1e-5 of each
    output's scale on continuous ones (f32 sums in another order; a bf16
    gradient also within one bf16 rounding), two launches bitwise equal;
    and on ragged shapes (U, I off the tiles and off 16, I below a warp,
    D 3/8/20/64/128, a skewed incidence); its shared-memory guard against
-   the launcher's own figure, and the streaming kernel's too. Streaming
-   retrieval also at k=1/100/200/1000/3000 over catalogs off its 128-item
-   steps (past a block's shared memory the running lists go to device
-   memory at k=1000, the merge lists too at k=3000), at the default and the
-   narrowest survivor slack, with
-   the sub-sentinel users and a second launch bitwise equal to the
-   first, and at k=1000 over 50k items.
+   the launcher's own figure.
 4. The serving slice end to end through ``lgcnhs_tpu_torch.cli.retrieve``
-   (ML-1M scale, ``--env prod``, k=100) with a seeded LightGCNOpti
-   checkpoint: SpreadLightGCNOpti, LightGCNOpti, and both over a 49,410-item
-   catalog (beyond the one-shot kernel's cap; SpreadLightGCNOpti through the
-   fused serving kernel, as at ML-1M). Then the training slice: the
+   (``--env prod``, k=100) with seeded LightGCNOpti checkpoints:
+   SpreadLightGCNOpti (fused serving) and LightGCNOpti (fused retrieval)
+   at ML-1M scale and over a 49,410-item catalog, and LightGCNOpti over
+   that catalog at k=1000 (running lists in device memory). Float64
+   checkpoints at ML-1M for both models: served at f64 on the card by the
+   plain chain, no kernel launched, identical to that chain run directly
+   and to it on the CPU (tie-equivalent for fused serving, whose f32
+   product F sums in another order there). Then the training slice: the
    same CLI on an empty workdir trains LightGCNOpti for 1000 epochs through
    the ``dual_matmul`` kernel (6 launches a step) and serves
    SpreadLightGCNOpti from the checkpoint it wrote. Launch counts (and the
    counts of the second kernels: the split-K sum of ``dual_matmul``, the
-   streaming parts' merge) are zeroed just before each path and read just
-   after; the served 49,410-item catalog is also retrieved at k=1000
-   against the twin. Every output is checked
-   against the plain chain, the training history for finite values and a
+   catalog parts' merges) are zeroed just before each path and read just
+   after, and each run is checked to have gone through its kernel alone.
+   Every output is checked against the plain chain, the training history for finite values and a
    falling loss. Last, 20 epochs on the kernel route and on the twin route
    from one seed, compared within the stated tolerance.
 5. Timings at the main path's shapes: kernel, plain twin, and the nearest
    library composition (torch.matmul + torch.topk, two bf16 torch.matmul
    for ``dual_matmul``; no single PyTorch call computes these functions, so
-   ``library_ms`` is null), medians of CUDA-event timings; for the three
-   redesigned kernels (``dual_matmul``, streaming retrieval, fused serving)
-   also their device ms and their composition's from ``torch.profiler`` and
-   their share of the bound (fused serving: also its dense floor, the
-   tensor-core work of its design at the bf16 peak); the train step's ms and examples/s over a
+   ``library_ms`` is null), medians of CUDA-event timings; every kernel's
+   device ms and its composition's from ``torch.profiler`` and its share of
+   the bound (fused serving: also its dense floor, the tensor-core work of
+   its design at the bf16 peak); retrieval also over the 49,410-item
+   catalog at k=100 and k=1000; the train step's ms and examples/s over a
    synchronized steady window, its device-busy ms and idle share, and its
    device time by kernel from ``torch.profiler``.
 
@@ -85,7 +90,8 @@ sys.path.insert(0, ROOT)
 
 SEED = 0
 K_SLICE = 100
-BIG_CATALOG = 50_000  # tests/tpu_smoke.py's streaming size
+K_LARGE = 1000  # a long list over the large catalog: running lists in device memory
+BIG_CATALOG = 50_000  # tests/tpu_smoke.py's streaming size (49,410 items kept)
 AGREEMENT_MIN = 0.98
 GAP_MAX = 5e-4
 # NVIDIA H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s, f32 FLOP/s
@@ -209,7 +215,9 @@ def main() -> int:
         from lgcnhs_tpu_torch.ops.cuda import propagation as prop
         from lgcnhs_tpu_torch.ops.cuda import retrieval as rt
         from lgcnhs_tpu_torch.ops.diffusion import general_spreading_matrix, hybrid_transfer
-        from lgcnhs_tpu_torch.ops.topk import MASK_VALUE, masked_topk
+        from lgcnhs_tpu_torch.ops.topk import (
+            MASK_VALUE, masked_topk, retrieval_route, select_topk,
+        )
         from lgcnhs_tpu_torch.train import trainer
         from lgcnhs_tpu_torch.train.trainer import load_checkpoint, save_checkpoint
     except ImportError as e:
@@ -270,7 +278,10 @@ def main() -> int:
         return f.masked_fill_(seen, fs.EXCLUDED)
 
     # -- 3. kernels against their twins ----------------------------------
-    def retrieval_checks(U, I, D, ks, label, streaming_only=False):
+    def retrieval_checks(U, I, D, ks, label):
+        """The retrieval kernel against the twin at each k, dyadic (bitwise)
+        and continuous (tie-equivalent), with the sub-sentinel users and a
+        second launch bitwise equal to the first."""
         for exact in (True, False):
             ue = dyadic((U, D)) if exact else normal((U, D), 0.3)
             ie = dyadic((I, D)) if exact else normal((I, D), 0.3)
@@ -280,48 +291,44 @@ def main() -> int:
             ref = None if exact else retrieval_ref64(ue, ie, seen)
             for k in ks:
                 want = rt.fused_topk_retrieval_ref(ue, ie, seen, k)
-                flavors = [("streaming", rt.streaming_topk_retrieval)]
-                if not streaming_only:
-                    flavors.insert(0, ("fused", rt.fused_topk_retrieval))
-                for name, fn in flavors:
-                    got = fn(ue, ie, seen, k)
-                    torch.cuda.synchronize()
-                    compare(torch, check, f"{name} retrieval {label} k={k} "
-                            f"{'dyadic' if exact else 'continuous'}", got, want, ref)
-                    sub = got[0][:2]
-                    check(f"{name} retrieval {label} k={k} sub-sentinel users get real ids",
-                          bool(((sub >= 0) & (sub < I)).all())
-                          and got[0][1, :3].tolist() == [5, 17, 250][:min(k, 3)])
-        if not streaming_only:  # the streaming merge over several narrow tiles
-            ue, ie = cuda(dyadic((U, D))), cuda(dyadic((I, D)))
-            seen = cuda(gen.random((U, I)) < 0.05)
-            want = rt.fused_topk_retrieval_ref(ue, ie, seen, max(ks))
-            got = rt.streaming_topk_retrieval(ue, ie, seen, max(ks), item_tile=128)
-            compare(torch, check, f"streaming retrieval {label} tile=128 k={max(ks)}", got, want)
+                got = rt.fused_topk_retrieval(ue, ie, seen, k)
+                again = rt.fused_topk_retrieval(ue, ie, seen, k)
+                torch.cuda.synchronize()
+                flavor = f"retrieval {label} k={k} {'dyadic' if exact else 'continuous'}"
+                compare(torch, check, flavor, got, want, ref)
+                sub = got[0][:2]
+                check(f"{flavor}: sub-sentinel users get real ids",
+                      bool(((sub >= 0) & (sub < I)).all())
+                      and got[0][1, :3].tolist() == [5, 17, 250][:min(k, 3)])
+                check(f"{flavor}: second launch bitwise equal",
+                      torch.equal(got[0], again[0]) and torch.equal(got[1], again[1]))
+            del ref
 
-    def streaming_checks(U, I, D, ks):
-        """The streaming kernel at k 1/100/200 over a catalog that is not a
-        whole number of 128-item steps, with the sub-sentinel users, the
-        default and the narrowest survivor slack, and a second launch
-        bitwise equal to the first."""
+    def list_checks(U, I, D, ks):
+        """The retrieval kernel at each k over a catalog that is not a whole
+        number of 128-item steps: k = 128 (the largest k merged in
+        registers) and 129 (merged through memory), 407 (the largest k whose
+        lists fit the block's shared memory) and 408 (running lists in
+        device memory), 1000 and 3000 (merge lists in device memory too);
+        dyadic, with the sub-sentinel users and a second launch bitwise
+        equal to the first."""
         ue, ie = dyadic((U, D)), dyadic((I, D))
         seen = gen.random((U, I)) < 0.05
         sub_sentinel(ue, ie, seen)
         ue, ie, seen = cuda(ue), cuda(ie), cuda(seen)
         for k in ks:
-            want = rt.fused_topk_retrieval_ref(ue, ie, seen, k)
-            for tile in (None, 1):
-                label = f"streaming retrieval {U}x{I}x{D} k={k} item_tile={tile}"
-                got = rt.streaming_topk_retrieval(ue, ie, seen, k, item_tile=tile)
-                again = rt.streaming_topk_retrieval(ue, ie, seen, k, item_tile=tile)
-                torch.cuda.synchronize()
-                compare(torch, check, label, got, want)
-                check(f"{label}: second launch bitwise equal",
-                      torch.equal(got[0], again[0]) and torch.equal(got[1], again[1]))
-                sub = got[0][:2]
-                check(f"{label}: users scoring below -1024 everywhere get real ids",
-                      bool(((sub >= 0) & (sub < I)).all())
-                      and got[0][1, :3].tolist() == [5, 17, 250][:min(k, 3)])
+            label = (f"retrieval {U}x{I}x{D} k={k} (workspace "
+                     f"{rt.topk_block_bytes(k, limit)[1]} B a block)")
+            got = rt.fused_topk_retrieval(ue, ie, seen, k)
+            again = rt.fused_topk_retrieval(ue, ie, seen, k)
+            torch.cuda.synchronize()
+            compare(torch, check, label, got, rt.fused_topk_retrieval_ref(ue, ie, seen, k))
+            check(f"{label}: second launch bitwise equal",
+                  torch.equal(got[0], again[0]) and torch.equal(got[1], again[1]))
+            sub = got[0][:2]
+            check(f"{label}: users scoring below -1024 everywhere get real ids",
+                  bool(((sub >= 0) & (sub < I)).all())
+                  and got[0][1, :3].tolist() == [5, 17, 250][:min(k, 3)])
 
     def serve_checks(U, I, D, ks, label, A_real=None):
         """Fused serving against its twin at each k, dyadic and continuous,
@@ -380,18 +387,14 @@ def main() -> int:
 
     def edge_checks():
         """Ragged shapes: partial user blocks, D off the load batch, k == I,
-        I below a warp, k above 128, and streaming tiles of exactly k."""
+        I below a warp, k above 128."""
         for U, I, D, k in ((37, 300, 20, 10), (13, 40, 3, 40), (9, 5, 8, 5), (70, 1000, 64, 200)):
             label = f"edge U={U} I={I} D={D} k={k}"
             ue, ie = cuda(dyadic((U, D))), cuda(dyadic((I, D)))
             seen = cuda(gen.random((U, I)) < 0.2)
             want = rt.fused_topk_retrieval_ref(ue, ie, seen, k)
-            compare(torch, check, f"fused retrieval {label}",
+            compare(torch, check, f"retrieval {label}",
                     rt.fused_topk_retrieval(ue, ie, seen, k), want)
-            compare(torch, check, f"streaming retrieval {label}",
-                    rt.streaming_topk_retrieval(ue, ie, seen, k), want)
-            compare(torch, check, f"streaming retrieval {label} tile=k",
-                    rt.streaming_topk_retrieval(ue, ie, seen, k, item_tile=k), want)
             mask = gen.random((U, I)) < 0.2
             A = cuda(mask.astype(np.float32))
             W = cuda(dyadic((I, I), 0, 4))
@@ -486,10 +489,19 @@ def main() -> int:
     R8_slice, du_slice, di_slice = trainer.device_binary_factors(
         graph.n_users, graph.n_items, graph.train, dev)
     A_slice = interaction_matrix(graph.n_users, graph.n_items, graph.train, graph.val)
-    check("ML-1M one-shot retrieval fits a block",
-          rt.fits_smem_retrieval(graph.n_items, 64, limit), f"{graph.n_items} items")
-    check(f"{BIG_CATALOG} items exceed the one-shot cap",
-          not rt.fits_smem_retrieval(BIG_CATALOG, 64, limit))
+    tlib = rt._topk_launcher()[0]
+    mism = [(k, rt.topk_block_bytes(k, limit),
+             (tlib.fused_topk_smem_bytes(k, limit), tlib.fused_topk_workspace_bytes(k, limit)))
+            for k in (1, 100, 128, 129, 146, 147, 407, 408, 1000, 3000)]
+    mism = [x for x in mism if tuple(x[1]) != tuple(x[2])]
+    check("retrieval guard: topk_block_bytes equals the launcher's shared memory and workspace",
+          not mism, f"{mism}")
+    resident = {k: tlib.fused_topk_resident_blocks(k, limit) for k in (1, 100, 147)}
+    check("retrieval kernel: two blocks (16 warps) an SM at k=100, as shared memory allows",
+          resident[100] == 2 and resident[147] == 1, f"resident blocks {resident}")
+    check("route: the kernel for float32 tables, the plain chain for float64",
+          [retrieval_route("cuda", t) for t in (torch.float32, torch.float64)]
+          == ["kernel", "plain"])
     check("dual_matmul guard: D=64 and D=128 fit, D=129 does not",
           prop.fits_smem_dual(64, limit) and prop.fits_smem_dual(128, limit)
           and not prop.fits_smem_dual(129, limit) and prop.fits_dual(64, dev)
@@ -503,17 +515,6 @@ def main() -> int:
                                                                         prop._CODES[e], d)]
     check("dual_matmul guard: smem_bytes equals the launcher's shared memory", not mism,
           f"{mism}")
-    rlib = rt._stream_launcher()[0]
-    mism = [(k, t, rt.stream_smem_bytes(k, t), rlib.streaming_smem_bytes(k, t))
-            for k in (1, 100, 200, 484, 485, 1000) for t in (1, rt.STREAM_TILE, 128)
-            if rt.stream_smem_bytes(k, t) != rlib.streaming_smem_bytes(k, t)]
-    check("streaming guard: stream_smem_bytes equals the launcher's shared memory",
-          not mism, f"{mism}")
-    ws_bytes = [rlib.streaming_workspace_bytes(k, rt.STREAM_TILE, limit)
-                for k in (484, 485, 2424, 2425)]
-    check("streaming at a 16-entry tile: long lists in shared memory to k=484, then the "
-          "running lists in device memory, past k=2424 the merge lists too",
-          ws_bytes == [0, 4 * 32 * 2 * 485, 4 * 32 * 2 * 2424, 4 * 40 * 2 * 2425], f"{ws_bytes}")
     slib = fs._launcher()[0]
     sizes = [(k, na, fs.serve_block_bytes(k, na, limit),
               (slib.fused_serve_smem_bytes(k, na, limit),
@@ -540,15 +541,16 @@ def main() -> int:
               and (flag is None or int(flag) == int(x0 is not binary)))
     check.guard("dual_matmul", dual_checks, R8_slice)
     check.guard("retrieval 384x896", retrieval_checks, 384, 896, 64, (10, 100), "384x896")
+    check.guard("retrieval ML-100K shape", retrieval_checks, 943, 1682, 64, (1, 100, 1000),
+                "943x1682x64")
     check.guard("retrieval slice", retrieval_checks, graph.n_users, graph.n_items, 64,
-                (10, 100), f"{graph.n_users}x{graph.n_items}x64")
-    check.guard("streaming 50k", retrieval_checks, 384, BIG_CATALOG, 64, (100, 1000),
-                f"384x{BIG_CATALOG}", True)
-    check.guard("streaming k 1/100/200/1000", streaming_checks, 300, 1111, 64,
-                (1, 100, 200, 1000))
-    check.guard("streaming k=3000", streaming_checks, 40, 3500, 16, (3000,))
-    check.guard("streaming D=1024", retrieval_checks, 128, 16_384, 1024, (100,),
-                "128x16384 D=1024", True)
+                (1, 100, 1000), f"{graph.n_users}x{graph.n_items}x64")
+    check.guard("retrieval 50k", retrieval_checks, 384, BIG_CATALOG, 64, (100, 1000),
+                f"384x{BIG_CATALOG}")
+    check.guard("retrieval lists", list_checks, 300, 1111, 64, (1, 128, 129, 407, 408, 1000))
+    check.guard("retrieval k=3000", list_checks, 40, 3500, 16, (3000,))
+    check.guard("retrieval D=1024", retrieval_checks, 128, 16_384, 1024, (100,),
+                "128x16384 D=1024")
     check.guard("serve 384x896", serve_checks, 384, 896, 64, (10, 100), "384x896")
     check.guard("serve slice", serve_checks, graph.n_users, graph.n_items, 64, (10, 100),
                 f"{graph.n_users}x{graph.n_items}x64", A_slice)
@@ -566,83 +568,91 @@ def main() -> int:
     ml1m = ["--dataset", "movielens1m", "--env", "prod"]
     big = ["--dataset", "synthetic", "--env", "prod", "--users", "6040",
            "--items", str(BIG_CATALOG), "--interactions", "1000209"]
-    runs = [("SpreadLightGCNOpti", ml1m), ("LightGCNOpti", ml1m), ("LightGCNOpti", big),
-            ("SpreadLightGCNOpti", big)]
-    cells = {}
-    for model, args in runs:
-        over = ({} if args is ml1m else
-                {"synthetic_users": 6040, "synthetic_items": BIG_CATALOG,
-                 "synthetic_interactions": 1_000_209})
-        cfg = tcfg.load_config(env="prod", dataset=args[1], model=model, workdir=work,
+    # (model, arguments, k): k=100 is the prod preset's; a list of 1000 over
+    # the large catalog keeps its running lists in device memory
+    runs = [("SpreadLightGCNOpti", ml1m, K_SLICE), ("LightGCNOpti", ml1m, K_SLICE),
+            ("LightGCNOpti", big, K_SLICE), ("SpreadLightGCNOpti", big, K_SLICE),
+            ("LightGCNOpti", big, K_LARGE)]
+
+    def make_cell(model, args, k, workdir, dtype=torch.float32):
+        """(config, graph, seeded random tables) of one run, its checkpoint
+        written where cli/retrieve looks for it."""
+        over = {"k": k}
+        if args is big:
+            over.update(synthetic_users=6040, synthetic_items=BIG_CATALOG,
+                        synthetic_interactions=1_000_209)
+        cfg = tcfg.load_config(env="prod", dataset=args[1], model=model, workdir=workdir,
                                overrides=over)
         splits, uf, itf = load_dataset(cfg)
         g = build_graph(splits)
         params = init_lightgcn_opti(torch.Generator().manual_seed(SEED), uf, itf, 64)
+        params = LightGCNParams(*(t.to(dtype) for t in params))
         os.makedirs(cfg.model_path, exist_ok=True)
         save_checkpoint(checkpoint_path(cfg), params)
-        cells[(model, args[1])] = (cfg, g, params)
+        return cfg, g, params
+
+    cells = {(model, args[1], k): make_cell(model, args, k, work) for model, args, k in runs}
 
     kernels = {"fused_topk_retrieval": rt.fused_topk_retrieval,
-               "streaming_topk_retrieval": rt.streaming_topk_retrieval,
                "fused_lgcnhs_serve": fs.fused_lgcnhs_serve}
     for fn in kernels.values():
         fn.launches = 0
-    rt.streaming_topk_retrieval.merge_launches = 0
-    fs.fused_lgcnhs_serve.merge_launches = 0
+        fn.merge_launches = 0
     fs.fused_lgcnhs_serve.split_launches = 0
     outputs, run_launches = [], []
-    for model, args in runs:
+    for model, args, k in runs:
         t0 = time.perf_counter()
         before = {name: fn.launches for name, fn in kernels.items()}
-        rec = retrieve.main(["--device", "cuda", "--workdir", work, "--model", model, *args])
+        rec = retrieve.main(["--device", "cuda", "--workdir", work, "--model", model, *args,
+                             "--k", str(k)])
         outputs.append(rec)
         run_launches.append({name: fn.launches - before[name] for name, fn in kernels.items()})
-        print(f"[phase 4] {model} {args[1]}: {rec.shape} in {time.perf_counter() - t0:.2f} s, "
-              f"launches {run_launches[-1]}", flush=True)
+        print(f"[phase 4] {model} {args[1]} k={k}: {rec.shape} in "
+              f"{time.perf_counter() - t0:.2f} s, launches {run_launches[-1]}", flush=True)
     launches = {name: fn.launches for name, fn in kernels.items()}
-    merge_launches = rt.streaming_topk_retrieval.merge_launches
-    serve_merges = fs.fused_lgcnhs_serve.merge_launches
+    merges = {name: fn.merge_launches for name, fn in kernels.items()}
     serve_splits = fs.fused_lgcnhs_serve.split_launches
-    print(f"[phase 4] launches {launches}, streaming merge {merge_launches}, fused serve "
-          f"merge {serve_merges}, split {serve_splits}", flush=True)
+    print(f"[phase 4] launches {launches}, merges {merges}, fused serve split {serve_splits}",
+          flush=True)
     for name, n in launches.items():
         check(f"main path launched {name}", n > 0, f"{n} launches")
-    check("main path launched the streaming merge over the catalog parts",
-          merge_launches > 0, f"{merge_launches} launches")
+    check("main path launched the retrieval kernel's merge over its catalog parts with each "
+          "call", merges["fused_topk_retrieval"] == launches["fused_topk_retrieval"], f"{merges}")
     check("main path launched the fused serve's merge and its bf16 split with each call",
-          serve_merges == launches["fused_lgcnhs_serve"]
+          merges["fused_lgcnhs_serve"] == launches["fused_lgcnhs_serve"]
           and serve_splits == 2 * launches["fused_lgcnhs_serve"],
-          f"{serve_merges} merges, {serve_splits} splits")
-    for (model, args), n in zip(runs, run_launches):
-        if model == "SpreadLightGCNOpti":
-            check(f"cli/retrieve {model} {args[1]} served through fused_lgcnhs_serve",
-                  n["fused_lgcnhs_serve"] == 1, f"{n}")
+          f"{merges['fused_lgcnhs_serve']} merges, {serve_splits} splits")
+    for (model, args, k), n in zip(runs, run_launches):
+        want = "fused_lgcnhs_serve" if model == "SpreadLightGCNOpti" else "fused_topk_retrieval"
+        check(f"cli/retrieve {model} {args[1]} k={k} served through {want} alone",
+              n == {name: int(name == want) for name in kernels}, f"{n}")
 
     timing_inputs = {}
 
     def output_checks(model, dataset, cfg, g, params, rec, timing_key):
         """The served (U, k) lists against the plain chain."""
-        label = f"cli/retrieve {model} {dataset} ({g.n_users}x{g.n_items}, k={cfg.k})"
+        k = cfg.k
+        label = f"cli/retrieve {model} {dataset} ({g.n_users}x{g.n_items}, k={k})"
         seen = cuda(pos_bool_matrix(g.n_users, g.n_items, g.train, g.val))
         ue, ie = params.user_emb.to(dev), params.item_emb.to(dev)
         got = cuda(rec)
-        check(f"{label} shape and id range", tuple(rec.shape) == (g.n_users, K_SLICE)
+        check(f"{label} shape and id range", tuple(rec.shape) == (g.n_users, k)
               and bool(((got >= 0) & (got < g.n_items)).all()))
-        enough = (~seen).sum(dim=1) >= K_SLICE
+        enough = (~seen).sum(dim=1) >= k
         hits = seen.gather(1, got.long())[enough].any(dim=1)
-        check(f"{label} no seen item for users with >= {K_SLICE} unseen", not bool(hits.any()),
+        check(f"{label} no seen item for users with >= {k} unseen", not bool(hits.any()),
               f"{int(hits.sum())} users violate")
         if model == "LightGCNOpti":
-            want = masked_topk(ue @ ie.T, seen, K_SLICE)
+            want = masked_topk(ue @ ie.T, seen, k)
             ref = retrieval_ref64(ue, ie, seen)
-            timing_inputs[timing_key] = (ue, ie, seen, K_SLICE)
+            timing_inputs[timing_key] = (ue, ie, seen, k)
         else:
             A = cuda(interaction_matrix(g.n_users, g.n_items, g.train, g.val))
             W = hybrid_transfer(A, general_spreading_matrix(A), cfg.hparams.lambda_)
-            want = fs.fused_lgcnhs_serve_ref(ue, ie, A, W, seen, K_SLICE)[0]
+            want = fs.fused_lgcnhs_serve_ref(ue, ie, A, W, seen, k)[0]
             ref = serve_ref64(ue, ie, A, W, seen)
             if timing_key:  # the 49,410-item catalog's W (9.8 GB) is not kept
-                timing_inputs[timing_key] = (ue, ie, A, W, seen, K_SLICE)
+                timing_inputs[timing_key] = (ue, ie, A, W, seen, k)
         agreement, gap = tie_equivalence(torch, want, got, ref)
         check(f"{label} tie-equivalent to the plain chain",
               agreement >= AGREEMENT_MIN and gap <= GAP_MAX,
@@ -650,30 +660,64 @@ def main() -> int:
         del ref, want
         torch.cuda.empty_cache()
 
-    for (model, args), rec in zip(runs, outputs):
-        cfg, g, params = cells[(model, args[1])]
-        output_checks(model, args[1], cfg, g, params, rec,
-                      "fused_topk_retrieval" if args is ml1m and model == "LightGCNOpti"
-                      else "streaming_topk_retrieval" if model == "LightGCNOpti"
-                      else "fused_lgcnhs_serve" if args is ml1m else None)
+    timing_keys = {("LightGCNOpti", "movielens1m", K_SLICE): "fused_topk_retrieval",
+                   ("LightGCNOpti", "synthetic", K_SLICE): "fused_topk_big",
+                   ("LightGCNOpti", "synthetic", K_LARGE): "fused_topk_k1000",
+                   ("SpreadLightGCNOpti", "movielens1m", K_SLICE): "fused_lgcnhs_serve"}
+    for (model, args, k), rec in zip(runs, outputs):
+        cfg, g, params = cells[(model, args[1], k)]
+        output_checks(model, args[1], cfg, g, params, rec, timing_keys.get((model, args[1], k)))
 
-    def streaming_large_k():
-        """The served 49,410-item catalog at k=1000: each user's lists past
-        a block's shared memory, in the device-memory workspace. Returns
-        the call's ms (CUDA events)."""
-        ue, ie, seen, _ = timing_inputs["streaming_topk_retrieval"]
-        k = 1000
-        got = rt.streaming_topk_retrieval(ue, ie, seen, k)
-        want = rt.fused_topk_retrieval_ref(ue, ie, seen, k)
-        torch.cuda.synchronize()
-        label = f"streaming retrieval {ue.shape[0]}x{ie.shape[0]}x{ue.shape[1]} k={k}"
-        check(f"{label} shape and id range", tuple(got[0].shape) == (ue.shape[0], k)
-              and bool(((got[0] >= 0) & (got[0] < ie.shape[0])).all()))
-        compare(torch, check, label, got, want, retrieval_ref64(ue, ie, seen))
-        del want
-        return median_ms(torch, lambda: rt.streaming_topk_retrieval(ue, ie, seen, k), 3)
+    def float64_checks():
+        """Float64 checkpoints at ML-1M through cli/retrieve: served at f64 on
+        the card by the plain chain, as the JAX package serves them, with no
+        kernel launched. The ids are held against the same chain at f64 on
+        the card (identical) and against it on the CPU, another device's f64
+        products: identical for LightGCNOpti; for SpreadLightGCNOpti, whose F
+        is an f32 product summed in another order there, tie-equivalent
+        under the CPU's scores."""
+        work64 = tempfile.mkdtemp(prefix="chip_smoke_f64_", dir=os.path.join(ROOT, "artifacts"))
+        for model in ("LightGCNOpti", "SpreadLightGCNOpti"):
+            cfg, g, params = make_cell(model, ml1m, K_SLICE, work64, torch.float64)
+            before = {name: fn.launches for name, fn in kernels.items()}
+            rec = retrieve.main(["--device", "cuda", "--workdir", work64, "--model", model,
+                                 *ml1m])
+            counted = {name: fn.launches - before[name] for name, fn in kernels.items()}
+            seen_h = torch.from_numpy(pos_bool_matrix(g.n_users, g.n_items, g.train, g.val))
+            ue_h, ie_h = params.user_emb.cpu(), params.item_emb.cpu()
+            seen, ue, ie = cuda(seen_h), ue_h.to(dev), ie_h.to(dev)
+            if model == "LightGCNOpti":
+                want = masked_topk(ue @ ie.T, seen, K_SLICE)
+                host = masked_topk(ue_h @ ie_h.T, seen_h, K_SLICE)
+                ref = None
+            else:
+                A_h = torch.from_numpy(interaction_matrix(g.n_users, g.n_items, g.train, g.val))
+                A = cuda(A_h)
+                W = hybrid_transfer(A, general_spreading_matrix(A), cfg.hparams.lambda_)
+                want = fs.fused_lgcnhs_serve_ref(ue, ie, A, W, seen, K_SLICE)[0]
+                W_h = W.cpu()
+                fused = (ue_h @ ie_h.T) * (A_h @ W_h)
+                ref = torch.where(seen_h, torch.full_like(fused, fs.EXCLUDED), fused)
+                host = select_topk(ref, K_SLICE)[1]
+            got = cuda(rec)
+            label = f"cli/retrieve {model} movielens1m float64 checkpoint"
+            check(f"{label}: served at f64 on the card by the plain chain, no kernel "
+                  "launched, identical to that chain run directly",
+                  ue.dtype == torch.float64 and torch.equal(got, want)
+                  and not any(counted.values()),
+                  f"{int((got != want).sum())} mismatches, launches {counted}")
+            if ref is None:
+                check(f"{label}: identical to the chain at f64 on the CPU",
+                      torch.equal(got.cpu(), host), f"{int((got.cpu() != host).sum())} mismatches")
+            else:
+                agreement, gap = tie_equivalence(torch, host, got.cpu(), ref)
+                check(f"{label}: tie-equivalent to the chain on the CPU",
+                      agreement >= AGREEMENT_MIN and gap <= GAP_MAX,
+                      f"agreement {agreement:.6f}, max relative gap {gap:.3e}")
+            del want, host, ref
+        shutil.rmtree(work64, ignore_errors=True)
 
-    large_k_ms = check.guard("streaming k=1000 on the served catalog", streaming_large_k)
+    check.guard("float64 checkpoints", float64_checks)
     torch.cuda.empty_cache()
 
     # the training slice: an empty workdir, so cli/retrieve trains first
@@ -762,11 +806,10 @@ def main() -> int:
     sources = {
         "fused_topk_retrieval": ("lgcnhs_tpu_torch/ops/cuda/retrieval.cu",
                                  "lgcnhs_tpu/ops/pallas/retrieval.py:110"),
-        "streaming_topk_retrieval": ("lgcnhs_tpu_torch/ops/cuda/retrieval.cu",
-                                     "lgcnhs_tpu/ops/pallas/retrieval.py:265"),
         "fused_lgcnhs_serve": ("lgcnhs_tpu_torch/ops/cuda/fusion_serve.cu",
                                "lgcnhs_tpu/ops/pallas/fusion_serve.py:120"),
     }
+
     def device_ms_by_kernel(fn, n):
         """{kernel name: device ms per call of fn} from torch.profiler over
         n calls, and the window's wall ms; ({}, None) when it traces no
@@ -836,26 +879,37 @@ def main() -> int:
                "launches": launches[name], "max_abs_err": max_abs_err, "ms": ms,
                "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
                "library_ms": None, "matmul_topk_ms": composition_ms}
-        extra = ""
-        if name != "fused_topk_retrieval":  # redesigned: device time from the profiler
-            by_kernel, _ = device_ms_by_kernel(lambda: fn(*inputs), 5)
-            comp_kernels, _ = device_ms_by_kernel(composition, 5)
-            own = ("streaming_", "part_lists_merge") if name == "streaming_topk_retrieval" \
-                else ("fused_serve_kernel", "part_lists_merge", "bf16_parts")
-            dev_ms = sum(v for n_, v in by_kernel.items() if any(o in n_ for o in own)) or None
-            comp_dev = sum(comp_kernels.values()) or None
-            row.update(device_ms=dev_ms, matmul_topk_device_ms=comp_dev,
-                       bound_share=bound_ms / dev_ms if dev_ms else None)
-            if name == "streaming_topk_retrieval":
-                row.update(merge_launches=merge_launches, k1000_ms=large_k_ms)
-            else:
-                row.update(merge_launches=serve_merges, split_launches=serve_splits)
-            extra = (f", device {dev_ms} ms ({row['bound_share']} of the bound; "
-                     f"matmul+topk device {comp_dev}), kernels {by_kernel}; "
-                     + (f"{merge_launches} merge launches; k=1000 {large_k_ms} ms"
-                        if name == "streaming_topk_retrieval" else
-                        f"{serve_merges} merge and {serve_splits} split launches; dense floor "
-                        f"{dense_floor_ms} ms"))
+        own = {"fused_topk_retrieval": ("fused_topk_kernel", "part_lists_merge"),
+               "fused_lgcnhs_serve": ("fused_serve_kernel", "part_lists_merge", "bf16_parts")}
+
+        def own_device_ms(call):
+            """(device ms of one call's own kernels, {kernel: ms})."""
+            by_kernel, _ = device_ms_by_kernel(call, 5)
+            return (sum(v for n_, v in by_kernel.items() if any(o in n_ for o in own[name]))
+                    or None), by_kernel
+
+        dev_ms, by_kernel = own_device_ms(lambda: fn(*inputs))
+        comp_kernels, _ = device_ms_by_kernel(composition, 5)
+        comp_dev = sum(comp_kernels.values()) or None
+        row.update(device_ms=dev_ms, matmul_topk_device_ms=comp_dev,
+                   bound_share=bound_ms / dev_ms if dev_ms else None,
+                   merge_launches=merges[name])
+        extra = (f", device {dev_ms} ms ({row['bound_share']} of the bound; matmul+topk "
+                 f"device {comp_dev}), kernels {by_kernel}; {merges[name]} merge launches")
+        if name == "fused_lgcnhs_serve":
+            row.update(split_launches=serve_splits)
+            extra += f", {serve_splits} split launches; dense floor {dense_floor_ms} ms"
+        else:
+            # the same kernel takes the place of the streaming Pallas kernel:
+            # timed over the 49,410-item catalog at k=100 and at k=1000 too
+            row["also_replaces"] = "lgcnhs_tpu/ops/pallas/retrieval.py:265"
+            for key in ("fused_topk_big", "fused_topk_k1000"):
+                big_in = timing_inputs[key]
+                tag = f"catalog_{big_in[1].shape[0]}_k{big_in[3]}"
+                big_ms = median_ms(torch, lambda: fn(*big_in), reps)
+                big_dev = own_device_ms(lambda: fn(*big_in))[0]
+                row.update({f"{tag}_ms": big_ms, f"{tag}_device_ms": big_dev})
+                extra += f"; {tag} {big_ms:.4f} ms (device {big_dev})"
         print(f"[phase 5] {name} U={U} I={I} D={D} k={k}: {ms:.4f} ms (twin {plain_ms:.4f}, "
               f"matmul+topk {composition_ms:.4f}, bound {bound_ms:.4f} by {bound_by}) "
               f"max_abs_err {max_abs_err:.3e}{extra} [{smi}]", flush=True)

@@ -32,7 +32,8 @@ def allocate_matrix(params: LightGCNParams, seen: torch.Tensor) -> torch.Tensor:
 
 
 def _serve_unfused(ue, ie, A, W, seen, k) -> torch.Tensor:
-    """The plain serving chain: G = ue.ie^T and F = A.W as f32 matmuls,
+    """The plain serving chain: G = ue.ie^T at the tables' dtype (f32, or
+    f64 for a float64 checkpoint) and F = A.W as an f32 matmul,
     ``where(seen, -3e38, G*F)``, top k lowest index first.
 
     The JAX package keeps two flavors of this chain (native and HIGHEST
@@ -41,19 +42,35 @@ def _serve_unfused(ue, ie, A, W, seen, k) -> torch.Tensor:
     return fused_lgcnhs_serve_ref(ue, ie, A, W, seen, k)[0]
 
 
+def serve_route(device_type: str, dtype: torch.dtype, exact: bool) -> str:
+    """Which path ``serve_fused`` takes: ``"plain"``, the chain at the
+    tables' own dtype, off CUDA, under ``exact`` (``--serve-exact``) and for
+    float64 tables (a float64 checkpoint); else ``"kernel"``, the fused
+    serving kernel, whose wrapper raises on a dtype other than float32."""
+    if device_type == "cuda" and dtype != torch.float64 and not exact:
+        return "kernel"
+    return "plain"
+
+
 def serve_fused(
     graph: InteractionGraph,
     cfg: Config,
     params: LightGCNParams,
     exact: bool = False,
 ) -> np.ndarray:
-    """(U, k) int32 recommendations of the fused LGCNHS score: the fused
-    kernel on CUDA at any catalog size, the plain chain on the CPU.
-    ``exact=True`` (CLI ``--serve-exact``) is the precision switch: the
-    plain f32 chain on any device. Ties go to the lowest index
-    (``recommend_fused``'s reference ranker is not part of this slice)."""
+    """(U, k) int32 recommendations of the fused LGCNHS score, along
+    ``serve_route`` (logged on CUDA): the fused kernel on CUDA at any
+    catalog size, else the plain chain. ``exact=True`` (CLI
+    ``--serve-exact``) is the precision switch: the plain chain on any
+    device. Ties go to the lowest index (``recommend_fused``'s reference
+    ranker is not part of this slice)."""
     device = params.user_emb.device
-    with stage_timer(f"{cfg.model} fused serving done", get_logger()):
+    log = get_logger()
+    route = serve_route(device.type, params.user_emb.dtype, exact)
+    if device.type == "cuda":
+        log.info("serve_fused: %s route (%s)", route,
+                 str(params.user_emb.dtype).replace("torch.", ""))
+    with stage_timer(f"{cfg.model} fused serving done", log):
         A = torch.from_numpy(
             interaction_matrix(graph.n_users, graph.n_items, graph.train, graph.val)
         ).to(device)
@@ -62,7 +79,7 @@ def serve_fused(
         ).to(device)
         W = hybrid_transfer(A, general_spreading_matrix(A), cfg.hparams.lambda_)
         ue, ie = params.user_emb, params.item_emb
-        if exact or device.type != "cuda":
+        if route == "plain":
             rec = _serve_unfused(ue, ie, A, W, seen, cfg.k)
         else:
             rec = fused_lgcnhs_serve(ue, ie, A, W, seen, cfg.k)[0]

@@ -112,68 +112,6 @@ __device__ __forceinline__ void warp_select(int n, int k, At at, Knock knock,
   }
 }
 
-// One warp selects the k best entries of row[0, n) (ids = positions) into
-// out_idx/out_val (global memory, k slots), knocking each out in row.
-__device__ __forceinline__ void warp_select_row(float* row, int n, int k,
-                                                int32_t* out_idx,
-                                                float* out_val) {
-  warp_select(
-      n, k,
-      [&](int p, int& key, int& id) {
-        key = order_key(row[p]);
-        id = p;
-      },
-      [&](int p) { row[p] = knocked_out(); },
-      [&](int t, int key, int id) {
-        out_idx[t] = id;
-        out_val[t] = key_value(key);
-      });
-}
-
-// Scores of R users (rows of us, D wide, in shared memory) against item j,
-// read from the transposed (D, I) item table: coalesced across threads that
-// hold neighbouring j. Summation over d in ascending order, f32 FMA. The
-// item column is fetched kDepth values at a time, all loads issued before
-// the FMAs, so a thread waits on L2 once per kDepth values, not per value.
-constexpr int kDepth = 8;
-
-template <int R>
-__device__ __forceinline__ void user_item_dots(const float* us,
-                                               const float* __restrict__ itT,
-                                               int I, int D, int j,
-                                               float (&acc)[R]) {
-#pragma unroll
-  for (int r = 0; r < R; ++r) acc[r] = 0.0f;
-  const float* col = itT + j;
-  int d = 0;
-  for (; d + kDepth <= D; d += kDepth) {
-    float x[kDepth];
-#pragma unroll
-    for (int q = 0; q < kDepth; ++q) x[q] = __ldg(col + (size_t)(d + q) * I);
-#pragma unroll
-    for (int q = 0; q < kDepth; ++q) {
-#pragma unroll
-      for (int r = 0; r < R; ++r) acc[r] = fmaf(us[r * D + d + q], x[q], acc[r]);
-    }
-  }
-  for (; d < D; ++d) {
-    const float x = __ldg(col + (size_t)d * I);
-#pragma unroll
-    for (int r = 0; r < R; ++r) acc[r] = fmaf(us[r * D + d], x, acc[r]);
-  }
-}
-
-// Copies R user rows (zeros past row U) into shared memory.
-template <int R>
-__device__ __forceinline__ void load_user_rows(float* us,
-                                               const float* __restrict__ u,
-                                               int u0, int U, int D) {
-  for (int p = threadIdx.x; p < R * D; p += blockDim.x) {
-    const int r = p / D;
-    us[p] = (u0 + r < U) ? u[(size_t)(u0 + r) * D + p % D] : 0.0f;
-  }
-}
-
 // -- copies, tensor-core fragments and products ------------------------------
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
@@ -222,7 +160,7 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// -- streaming selection: running top-k lists, folds, the merge of parts -----
+// -- selection over a walked catalog: running top-k lists, the merge of parts -
 //
 // A block that walks the catalog keeps, per user, a running top-k (order
 // keys and ids, in rank order) and its k-th entry as a threshold; scores
@@ -265,7 +203,7 @@ __device__ __forceinline__ int rank_in_short(const int* key, const int* id, int 
 enum ListPlace : int { kListsShared = 0, kRunGlobal = 1, kAllGlobal = 2 };
 
 // The long lists of a block of NU users (k entries each, keys and ids):
-// each warp's merge list of a fold and each user's running top-k. Those
+// each warp's merge list and each user's running top-k. Those
 // that `place` puts in shared memory follow the block's other shared
 // memory (`near` bytes); the rest live in the block's slice of a
 // workspace in device memory.
@@ -317,7 +255,7 @@ __device__ inline void rank_entries(const int* nk, const int* ni, int m, int k, 
 // into rank order: a bitonic network, 28 compare-exchange steps (strides
 // below 4 within a lane, the others across lanes by shuffles). Unused
 // slots hold (INT_MIN, INT_MAX), which rank after every entry of a score.
-__device__ inline void warp_sort128(int (&key)[4], int (&id)[4]) {
+__device__ __forceinline__ void warp_sort128(int (&key)[4], int (&id)[4]) {
   const int lane = threadIdx.x & 31;
 #pragma unroll
   for (int size = 2; size <= 128; size <<= 1) {
@@ -450,18 +388,33 @@ __device__ __forceinline__ void load_run_small(const int* rk, const int* ri, int
 
 // merge_ranked for k <= 128, in place: the running list's nr entries are
 // already in registers (load_run_small), so there is no merge list and no
-// copy back; the four searches of the ranked list are independent. The
-// lane that writes entry k - 1 sets the threshold.
-__device__ inline void merge_ranked_small(const int* sk, const int* si, int sel, int nr,
-                                          const int (&key)[4], const int (&id)[4], int* rk,
-                                          int* ri, int* run_n, int* thr_key, int* thr_id,
-                                          int k) {
+// copy back; an entry's place comes from the ranked entries before it,
+// counted for up to 16 of them, else found by four independent searches.
+// The lane that writes entry k - 1 sets the threshold.
+__device__ __forceinline__ void merge_ranked_small(const int* sk, const int* si, int sel,
+                                                   int nr, const int (&key)[4],
+                                                   const int (&id)[4], int* rk, int* ri,
+                                                   int* run_n, int* thr_key, int* thr_id,
+                                                   int k) {
   const unsigned full = 0xffffffffu;
   const int lane = threadIdx.x & 31;
   int c[4];
+  if (sel <= 16) {  // a few: count them, independent reads, no search chain
 #pragma unroll
-  for (int i = 0; i < 4; ++i)  // past the list: after every ranked entry
-    c[i] = lane + 32 * i < nr ? rank_in_short(sk, si, sel, key[i], id[i]) : sel;
+    for (int i = 0; i < 4; ++i) c[i] = 0;
+    for (int s = 0; s < sel; ++s) {
+      const int a = sk[s], b = si[s];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) c[i] += ranks_before(a, b, key[i], id[i]);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)  // past the list: after every ranked entry
+      if (lane + 32 * i >= nr) c[i] = sel;
+  } else {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      c[i] = lane + 32 * i < nr ? rank_in_short(sk, si, sel, key[i], id[i]) : sel;
+  }
   int cn[4];  // c of the next entry: lane + 1's (lane 31: lane 0's of the next i)
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -493,17 +446,82 @@ __device__ inline void merge_ranked_small(const int* sk, const int* si, int sel,
   __syncwarp();
 }
 
+// One warp merges sel ranked entries (sk, si) into a user's running top-k
+// (rk, ri; *run_n entries, threshold *thr_key, *thr_id): for k <= 128 in
+// place, the list's run_n entries already in registers (run_key, run_id:
+// load_run_small), else through the warp's merge list (mk, mi).
+__device__ __forceinline__ void merge_into_list(const int* sk, const int* si, int sel, int run_n,
+                                                const int (&run_key)[4], const int (&run_id)[4],
+                                                int* rk, int* ri, int* run_n_p, int* thr_key,
+                                                int* thr_id, int* mk, int* mi, int k) {
+  if (k <= 128)
+    merge_ranked_small(sk, si, sel, run_n, run_key, run_id, rk, ri, run_n_p, thr_key, thr_id, k);
+  else
+    merge_ranked(sk, si, sel, rk, ri, run_n_p, thr_key, thr_id, mk, mi, k);
+}
+
+// One warp merges the survivors of one 128-entry row into a user's running
+// top-k. Lane `lane` holds entries (key[b], id[b]), b < 4 (distinct ids,
+// none in the list); pass[b] marks a survivor, m >= 1 of them in all. Many
+// survivors (> 32: the first rows, where nearly all pass) are ranked by a
+// bitonic sort in registers (warp_sort128: O(log^2) steps, not O(m^2));
+// a few are compacted (ballots: a fixed order) into (sv_key, sv_id) and
+// ranked by counting. The ranked survivors go to (sk, si), min(m, k) of
+// them, and are merged into the list (merge_into_list).
+__device__ __forceinline__ void merge_row_survivors(int (&key)[4], int (&id)[4],
+                                                    const bool (&pass)[4], int m, int* sv_key,
+                                                    int* sv_id, int* sk, int* si, int run_n,
+                                                    const int (&run_key)[4],
+                                                    const int (&run_id)[4], int* rk, int* ri,
+                                                    int* run_n_p, int* thr_key, int* thr_id,
+                                                    int* mk, int* mi, int k) {
+  const int lane = threadIdx.x & 31;
+  if (m > 32) {
+#pragma unroll
+    for (int b = 0; b < 4; ++b) {
+      if (!pass[b]) {
+        key[b] = INT_MIN;
+        id[b] = INT_MAX;
+      }
+    }
+    warp_sort128(key, id);
+#pragma unroll
+    for (int b = 0; b < 4; ++b) {
+      if (4 * lane + b < min(m, k)) {
+        sk[4 * lane + b] = key[b];
+        si[4 * lane + b] = id[b];
+      }
+    }
+    __syncwarp();
+  } else {
+    int pos = 0;
+#pragma unroll
+    for (int b = 0; b < 4; ++b) {
+      const unsigned bal = __ballot_sync(0xffffffffu, pass[b]);
+      if (pass[b]) {
+        sv_key[pos + __popc(bal & ((1u << lane) - 1u))] = key[b];
+        sv_id[pos + __popc(bal & ((1u << lane) - 1u))] = id[b];
+      }
+      pos += __popc(bal);
+    }
+    __syncwarp();
+    rank_entries(sv_key, sv_id, m, k, sk, si);
+  }
+  merge_into_list(sk, si, min(m, k), run_n, run_key, run_id, rk, ri, run_n_p, thr_key, thr_id,
+                  mk, mi, k);
+}
+
 // The k best of each user's `parts` ranked part lists, in rank order, one
 // warp a user, `upb` users a block. Part list p of user u is row
-// (p * U + u) of part_idx/part_val, k entries; past a part's item count it
-// holds -inf with id INT_MAX.
+// (p * U + u) of part_idx/part_val, k entries, ranked; a list may end in
+// padding, -inf with id INT_MAX, and all lists together hold at least k
+// real entries.
 // kStaged: rank counting over the user's lists staged in shared memory
 // (8 parts k bytes a user): an entry's place in the merged order is its
 // place in its own list plus, in every other list, the entries that rank
-// before it (in the lists before its own also an identical one, so that
-// the identical padding entries get distinct places); a binary search of
-// each other list. Otherwise warp_select over the lists in device memory,
-// knocking selected entries out to -inf there.
+// before it (a binary search of each other list); padding is never placed,
+// as k real entries rank before it. Otherwise warp_select over the lists
+// in device memory, knocking selected entries out to -inf there.
 template <bool kStaged>
 __global__ void __launch_bounds__(kThreads)
     part_lists_merge_kernel(int32_t* __restrict__ part_idx, float* __restrict__ part_val,
@@ -525,6 +543,7 @@ __global__ void __launch_bounds__(kThreads)
     __syncwarp();
     for (int p = lane; p < n; p += 32) {
       const int own = p / k, xk = key[p], xi = id[p];
+      if (xi == INT_MAX) continue;  // padding: the lists hold at least k real entries
       int r = p % k;
       for (int q = 0; q < parts && r < k; ++q) {
         if (q == own) continue;
@@ -533,7 +552,7 @@ __global__ void __launch_bounds__(kThreads)
         int lo = 0, hi = k;
         while (lo < hi) {
           const int mid = (lo + hi) >> 1;
-          if (ranks_before(qk[mid], qi[mid], xk, xi) || (q < own && qk[mid] == xk && qi[mid] == xi))
+          if (ranks_before(qk[mid], qi[mid], xk, xi))
             lo = mid + 1;
           else
             hi = mid;

@@ -36,7 +36,7 @@
 //    fmaf chain over ascending d, from 16-deep slices of the transposed
 //    user and item tables; then G * F into a fused tile in shared memory
 //    (the ring's space, drained by then).
-// 3. Selection, with the streaming retrieval kernel's lists (common.cuh):
+// 3. Selection, with the retrieval kernel's lists (common.cuh):
 //    a warp owns 16 users; per user it drops every score that does not
 //    rank before the user's running k-th and merges the tile's survivors
 //    into the running top-k. Survivors are ranked by a bitonic sort in
@@ -426,47 +426,11 @@ __global__ void __launch_bounds__(kThreads, 1)
         m += __popc(__ballot_sync(0xffffffffu, pass[b]));
       }
       if (m == 0) continue;
-      int* sk = sm.sc_key + w * sm.sc_len;
-      int* si = sm.sc_id + w * sm.sc_len;
-      if (m > 32) {  // many survivors (the first tiles): sort them in registers
-#pragma unroll
-        for (int b = 0; b < 4; ++b) {
-          if (!pass[b]) {
-            key[b] = INT_MIN;
-            id[b] = INT_MAX;
-          }
-        }
-        warp_sort128(key, id);
-#pragma unroll
-        for (int b = 0; b < 4; ++b) {
-          if (4 * lane + b < min(m, k)) {
-            sk[4 * lane + b] = key[b];
-            si[4 * lane + b] = id[b];
-          }
-        }
-        __syncwarp();
-      } else {  // a few: compact them (ballots: a fixed order) and rank them
-        int pos = 0;
-#pragma unroll
-        for (int b = 0; b < 4; ++b) {
-          const unsigned bal = __ballot_sync(0xffffffffu, pass[b]);
-          if (pass[b]) {
-            sv_key[pos + __popc(bal & ((1u << lane) - 1u))] = key[b];
-            sv_id[pos + __popc(bal & ((1u << lane) - 1u))] = id[b];
-          }
-          pos += __popc(bal);
-        }
-        __syncwarp();
-        rank_entries(sv_key, sv_id, m, k, sk, si);
-      }
-      if (small)
-        merge_ranked_small(sk, si, min(m, k), run_n, run_key, run_id, sm.lists.run_key + u * k,
-                           sm.lists.run_id + u * k, sm.run_n + u, sm.thr_key + u,
-                           sm.thr_id + u, k);
-      else
-        merge_ranked(sk, si, min(m, k), sm.lists.run_key + u * k, sm.lists.run_id + u * k,
-                     sm.run_n + u, sm.thr_key + u, sm.thr_id + u, sm.lists.mg_key + w * k,
-                     sm.lists.mg_id + w * k, k);
+      merge_row_survivors(key, id, pass, m, sv_key, sv_id, sm.sc_key + w * sm.sc_len,
+                          sm.sc_id + w * sm.sc_len, run_n, run_key, run_id,
+                          sm.lists.run_key + u * k, sm.lists.run_id + u * k, sm.run_n + u,
+                          sm.thr_key + u, sm.thr_id + u, sm.lists.mg_key + w * k,
+                          sm.lists.mg_id + w * k, k);
     }
     __syncthreads();  // the fused tile is read: the next tile's copies may land
   }

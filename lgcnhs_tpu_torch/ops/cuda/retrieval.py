@@ -1,10 +1,11 @@
 """Fused retrieval: layer-0 scores + seen mask + top-k in one kernel.
 
-Port of ``lgcnhs_tpu/ops/pallas/retrieval.py`` (``fused_topk_retrieval`` and
-``streaming_topk_retrieval``) to hand-written CUDA for Hopper
-(``retrieval.cu``, which explains the design and its bound).
+Port of ``lgcnhs_tpu/ops/pallas/retrieval.py`` to hand-written CUDA for
+Hopper (``retrieval.cu``, which explains the design and its bound): one
+kernel takes the place of both Pallas kernels, ``fused_topk_retrieval`` and
+``streaming_topk_retrieval``, at every catalog size and every k.
 
-Contract, shared by both kernels and their plain twin
+Contract, shared by the kernel and its plain twin
 ``fused_topk_retrieval_ref``: scores ``u . i^T`` in f32; seen entries become
 the finite -1024 sentinel (``ops/topk.MASK_VALUE``), so a user whose every
 unseen score is below it still gets real (seen) ids; the k best per user in
@@ -12,27 +13,28 @@ unseen score is below it still gets real (seen) ids; the k best per user in
 ascending), k distinct ids, ``1 <= k <= I``.
 Indices are int32, values f32.
 
-A wrapper given CPU tensors runs the twin; given CUDA tensors it launches
-its kernel or raises. ``<wrapper>.launches`` counts the calls that launched
-the wrapper's kernel; ``streaming_topk_retrieval.merge_launches`` those
-that also launched its second kernel, the merge of the catalog parts.
+The wrapper given CPU tensors runs the twin; given CUDA tensors it
+launches the kernel or raises. ``fused_topk_retrieval.launches`` counts the
+calls that launched the kernel; ``.merge_launches`` those that also
+launched its second kernel, the merge of the catalog parts.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional, Tuple
+from typing import Tuple
 
 import torch
 
 from lgcnhs_tpu_torch.ops.cuda import build
 from lgcnhs_tpu_torch.ops.topk import MASK_VALUE, select_topk
-ROWS = 8  # users per one-shot block, retrieval.cu kRows
-STREAM_USERS = 32  # users per streaming block, retrieval.cu kSU
-STREAM_STEP = 128  # items a streaming block scores per step, retrieval.cu kStep
-STREAM_SLICE = 16  # depth of one staged operand slice, retrieval.cu kDC
-STREAM_SLICES = 3  # staged slices in flight, retrieval.cu kSlices
-STREAM_TILE = 16  # the least default item_tile (pick_stream_tile)
+
+TOPK_USERS = 48  # users a block, retrieval.cu kTU
+STEP = 128  # items a block scores per step, kStep
+SLICE = 16  # depth of one staged operand slice, kDC
+TOPK_SLICES = 2  # staged slices in flight, kTSlices
+TOPK_BUFFER = 48  # survivors a user buffers between merges, kBuf
+WARPS = 8  # warps a block, every kernel (common.cuh kWarps)
 
 _LIB = "retrieval"
 _PTR = ctypes.c_void_p
@@ -56,7 +58,7 @@ def _check_args(user_emb, item_emb, seen, k) -> None:
 def fused_topk_retrieval_ref(
     user_emb: torch.Tensor, item_emb: torch.Tensor, seen: torch.Tensor, k: int
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The plain twin of both retrieval kernels: matmul, mask, stable sort."""
+    """The plain twin of the retrieval kernel: matmul, mask, stable sort."""
     _check_args(user_emb, item_emb, seen, k)
     scores = user_emb @ item_emb.T
     vals, idx = select_topk(torch.where(seen, torch.full_like(scores, MASK_VALUE), scores), k)
@@ -81,65 +83,52 @@ def _outputs(U, k, dev):
             torch.empty((U, k), dtype=torch.float32, device=dev))
 
 
-def _cuda_operands(user_emb, item_emb, seen, k, what):
-    dev = _check_cuda(user_emb, item_emb, seen, k, what)
-    return (
-        user_emb.contiguous(),
-        item_emb.T.contiguous(),  # (D, I): coalesced item reads
-        seen.contiguous().view(torch.uint8),
-        *_outputs(seen.shape[0], k, dev),
-    )
-
-
 def device_smem_limit(device: torch.device) -> int:
     return build.device_smem_limit(_LIB, device)
 
 
-def fused_smem_bytes(n_items: int, d: int) -> int:
-    """Dynamic shared memory of one one-shot block (retrieval.cu)."""
-    return 4 * ROWS * (d + n_items)
+def topk_block_bytes(k: int, smem_limit: int) -> Tuple[int, int]:
+    """(shared memory, workspace bytes) of one block
+    (``retrieval.cu`` ``TopkSmem``, whose ``fused_topk_smem_bytes`` and
+    ``fused_topk_workspace_bytes`` give the same): two staged slices of 16
+    x (48 users + 128 items) floats; four ints a user; per user a buffer of
+    48 survivors (keys and ids); per warp the ranked survivors of a merge
+    (min(128, k)); then the long lists, per user the running top-k and per
+    warp a merge list (k keys and ids each), in shared memory as far as
+    they fit ``smem_limit`` and in the workspace past that. Neither the
+    catalog size nor the embedding width enters: the kernel streams both."""
+    near = 4 * (TOPK_SLICES * SLICE * (TOPK_USERS + STEP) + 4 * TOPK_USERS
+                + TOPK_USERS * 2 * TOPK_BUFFER + WARPS * 2 * min(STEP, k))
+    lists = (TOPK_USERS + WARPS) * 2 * k  # ints
+    for shared in (lists, WARPS * 2 * k, 0):  # all, the merge lists, none
+        if near + 4 * shared <= smem_limit:
+            return near + 4 * shared, 4 * (lists - shared)
+    raise ValueError(f"fused_topk_retrieval: a block needs {near} B of shared memory, "
+                     f"the device allows {smem_limit} B")
 
 
-def stream_smem_bytes(k: int, tile: int) -> int:
-    """Dynamic shared memory of one streaming block with its long lists in
-    it (retrieval.cu ``StreamSmem``, whose ``streaming_smem_bytes`` gives the
-    same; the launcher places the lists that do not fit the device's limit
-    in device memory): three staged slices of 16 x (32
-    users + 128 items) floats and four counters a user; per user a
-    survivor area of one step plus ``tile`` entries (key, id); per warp a
-    fold's ranked survivors; then the long lists, per user the running
-    top-k and per warp a fold's merged list. The embedding width does not
-    enter: the operands are staged 16 deep."""
-    area = STREAM_STEP + tile
-    return 4 * (STREAM_SLICES * STREAM_SLICE * (STREAM_USERS + STREAM_STEP) + 4 * STREAM_USERS
-                + STREAM_USERS * 2 * area + 8 * 2 * min(area, k) + (STREAM_USERS + 8) * 2 * k)
+TOPK_MIN_PART_STEPS = 32  # steps a part keeps before parts may spread over waves
 
 
-def fits_smem_retrieval(n_items: int, d: int, smem_limit: int) -> bool:
-    """True when the one-shot kernel's score rows fit one block's shared
-    memory (``smem_limit``: the device's opt-in limit per block)."""
-    return fused_smem_bytes(n_items, d) <= smem_limit
-
-
-def pick_stream_tile(k: int) -> int:
-    """The streaming kernel's default ``item_tile``: the survivors a user
-    absorbs between folds. A fold ranks its survivors pairwise (the square
-    of the tile) and merges them into the k-entry running list (k), so the
-    best tile grows with k: on an H100 at 6040 x 49,410 x 64
-    (``tools/kernel_ab.py``, PERF.md) 16 was the fastest of 1 to 64 at
-    k=100, and 128 of 16 to 128 at k=1000. k / 8, at least ``STREAM_TILE``
-    and at most 256 (a block's survivor areas stay in shared memory)."""
-    return max(STREAM_TILE, min(256, k // 8))
-
-
-def stream_parts(n_users: int, n_items: int, n_sms: int) -> Tuple[int, int]:
-    """(parts, part_len): how the streaming kernel splits the catalog. The
-    fewest parts (of whole 128-item steps) whose blocks spread over the SMs
-    at least 90% evenly (blocks / (SMs x the most blocks an SM gets)), at
-    most 32, then rounded to whole steps per part; the user groups alone
-    give 189 blocks at 6040 users, 1.4 an SM on 132 SMs."""
-    return spread_parts(-(-n_users // STREAM_USERS), -(-n_items // STREAM_STEP), STREAM_STEP,
-                        n_sms)
+def topk_plan(n_users: int, n_items: int, resident: int, n_sms: int) -> Tuple[int, int]:
+    """(parts, part_len): how the kernel splits the catalog into parts of
+    whole 128-item steps over the card's ``n_sms`` x ``resident`` block
+    slots. Each part starts its users' lists afresh, sorting while
+    most scores survive, and later waves start from the k-th entries that
+    finished parts shared. So: the ``spread_parts`` split (blocks fill the
+    slots evenly over waves) while its parts keep at least 32 steps each,
+    else as many parts as the user groups of 48 fit into one wave, at
+    least one. On an H100 (``tools/kernel_ab.py``, k=100, device ms,
+    merges included): at ML-1M (29 steps) 2 parts 0.549, 4 parts 0.594
+    (with blocks of 64 users 2 parts 0.69, 8 parts 0.92); at 49,410 items
+    (387 steps) 2 parts 3.58, 6 parts 3.67."""
+    groups, steps = -(-n_users // TOPK_USERS), -(-n_items // STEP)
+    parts, part_len = spread_parts(groups, steps, STEP, n_sms * resident)
+    if part_len >= TOPK_MIN_PART_STEPS * STEP:
+        return parts, part_len
+    parts = max(1, min(steps, n_sms * resident // groups))
+    per = -(-steps // parts)
+    return -(-steps // per), per * STEP
 
 
 def spread_parts(groups: int, steps: int, step_len: int, slots: int) -> Tuple[int, int]:
@@ -164,33 +153,74 @@ def fused_topk_retrieval(
     user_emb: torch.Tensor, item_emb: torch.Tensor, seen: torch.Tensor, k: int
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(indices (U, k) int32, values (U, k) f32) of the masked preference
-    top-k, scores never written to device memory."""
+    top-k, scores never written to device memory: blocks of 48 users walk
+    their part of the catalog in 128-item steps with a running top-k, each
+    user's best k-th entry so far shared between the parts
+    (``retrieval.cu``); the parts' lists are then merged."""
     if user_emb.device.type == "cpu":
         return fused_topk_retrieval_ref(user_emb, item_emb, seen, k)
-    u, itT, seen8, idx, vals = _cuda_operands(
-        user_emb, item_emb, seen, k, "fused_topk_retrieval"
-    )
-    (U, D), I = u.shape, itT.shape[1]
-    need, limit = fused_smem_bytes(I, D), device_smem_limit(u.device)
-    if need > limit:
-        raise ValueError(
-            f"fused_topk_retrieval: {need} B of shared memory at I={I}, D={D} "
-            f"exceeds the block limit {limit} B; use streaming_topk_retrieval"
-        )
-    lib = build.load_library(_LIB)
-    fn = lib.fused_topk_retrieval_launch
-    fn.argtypes = [_PTR, _PTR, _PTR, _INT, _INT, _INT, _INT, _PTR, _PTR, _PTR]
-    fn.restype = _INT
-    with torch.cuda.device(u.device):
-        rc = fn(u.data_ptr(), itT.data_ptr(), seen8.data_ptr(), U, I, D, k,
-                idx.data_ptr(), vals.data_ptr(),
-                torch.cuda.current_stream().cuda_stream)
+    dev = _check_cuda(user_emb, item_emb, seen, k, "fused_topk_retrieval")
+    (U, D), I = user_emb.shape, item_emb.shape[0]
+    lib, fn = _topk_launcher()
+    limit = device_smem_limit(dev)
+    per_block = lib.fused_topk_workspace_bytes(k, limit)
+    resident = _topk_resident_blocks(lib, k, limit, dev)
+    if per_block < 0 or resident < 1:
+        raise RuntimeError(f"fused_topk_retrieval: no block fits at k={k} within {limit} B "
+                           "of shared memory")
+    parts, part_len = topk_plan(U, I, resident, _sm_count(dev))
+    uT, itT = _padded_t(user_emb), _padded_t(item_emb)
+    seen8 = seen.contiguous().view(torch.uint8)
+    idx, vals = _outputs(U, k, dev)
+    n_part = parts * U * k if parts > 1 else 0
+    part_idx = torch.empty(n_part, dtype=torch.int32, device=dev)
+    part_val = torch.empty(n_part, dtype=torch.float32, device=dev)
+    ws = None
+    if per_block:  # the long lists that do not fit shared memory
+        blocks = -(-U // TOPK_USERS) * parts
+        ws = torch.empty(blocks * per_block // 4, dtype=torch.int32, device=dev)
+    bound = torch.empty(U, dtype=torch.int64, device=dev)  # the launcher clears it
+    with torch.cuda.device(dev):
+        rc = fn(uT.data_ptr(), uT.shape[1], itT.data_ptr(), itT.shape[1], seen8.data_ptr(),
+                U, I, D, k, parts, part_len, limit, None if ws is None else ws.data_ptr(),
+                bound.data_ptr(), part_idx.data_ptr(), part_val.data_ptr(), idx.data_ptr(),
+                vals.data_ptr(), torch.cuda.current_stream().cuda_stream)
     build.check_launch(lib, rc, "fused_topk_retrieval")
     fused_topk_retrieval.launches += 1
+    if parts > 1:
+        fused_topk_retrieval.merge_launches += 1
     return idx, vals
 
 
 fused_topk_retrieval.launches = 0
+fused_topk_retrieval.merge_launches = 0
+
+
+def bind_topk(lib: ctypes.CDLL):
+    """Sets the C types of the kernel's functions in a library of
+    ``retrieval.cu``; its launcher."""
+    for name in ("fused_topk_smem_bytes", "fused_topk_workspace_bytes"):
+        getattr(lib, name).argtypes = [_INT, _INT]
+        getattr(lib, name).restype = ctypes.c_longlong
+    lib.fused_topk_resident_blocks.argtypes = [_INT, _INT]
+    lib.fused_topk_resident_blocks.restype = _INT
+    fn = lib.fused_topk_retrieval_launch
+    fn.argtypes = [_PTR, _INT, _PTR, _INT, _PTR] + [_INT] * 7 + [_PTR] * 7
+    fn.restype = _INT
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _topk_launcher():
+    """(library, launcher) of the kernel, its C types bound once."""
+    lib = build.load_library(_LIB)
+    return lib, bind_topk(lib)
+
+
+@functools.lru_cache(maxsize=None)
+def _topk_resident_blocks(lib, k, limit, dev) -> int:
+    with torch.cuda.device(dev):
+        return lib.fused_topk_resident_blocks(k, limit)
 
 
 def _padded_t(t: torch.Tensor) -> torch.Tensor:
@@ -198,74 +228,6 @@ def _padded_t(t: torch.Tensor) -> torch.Tensor:
     multiple of 4 floats (16-byte copies)."""
     n = t.shape[0]
     return torch.nn.functional.pad(t.T, (0, -n % 4)).contiguous()
-
-
-def streaming_topk_retrieval(
-    user_emb: torch.Tensor,
-    item_emb: torch.Tensor,
-    seen: torch.Tensor,
-    k: int,
-    item_tile: Optional[int] = None,
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``fused_topk_retrieval`` without its catalog cap: blocks of 32 users
-    score 128-item steps and keep a running top-k, so shared memory does not
-    grow with I; a large k's lists that do not fit a block's shared memory
-    go to a workspace in device memory. ``item_tile`` is how many survivors of
-    the running k-th a user absorbs between folds; ``None`` takes
-    ``pick_stream_tile(k)``. Any tile gives the same result."""
-    if user_emb.device.type == "cpu":
-        return fused_topk_retrieval_ref(user_emb, item_emb, seen, k)
-    dev = _check_cuda(user_emb, item_emb, seen, k, "streaming_topk_retrieval")
-    (U, D), I = user_emb.shape, item_emb.shape[0]
-    tile = pick_stream_tile(k) if item_tile is None else item_tile
-    if tile < 1:
-        raise ValueError(f"streaming_topk_retrieval: item_tile {tile} must be >= 1")
-    parts, part_len = stream_parts(U, I, _sm_count(dev))
-    uT, itT = _padded_t(user_emb), _padded_t(item_emb)
-    seen8 = seen.contiguous().view(torch.uint8)
-    idx, vals = _outputs(U, k, dev)
-    n_part = parts * U * k if parts > 1 else 0
-    part_idx = torch.empty(n_part, dtype=torch.int32, device=dev)
-    part_val = torch.empty(n_part, dtype=torch.float32, device=dev)
-    lib, fn = _stream_launcher()
-    limit = device_smem_limit(dev)
-    per_block = lib.streaming_workspace_bytes(k, tile, limit)
-    if per_block < 0:
-        raise ValueError(f"streaming_topk_retrieval: item_tile {tile} leaves no block "
-                         f"within {limit} B of shared memory")
-    ws = None
-    if per_block:  # the long lists that do not fit shared memory
-        blocks = -(-U // STREAM_USERS) * parts
-        ws = torch.empty(blocks * per_block // 4, dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        rc = fn(uT.data_ptr(), uT.shape[1], itT.data_ptr(), itT.shape[1], seen8.data_ptr(),
-                U, I, D, k, tile, parts, part_len, limit,
-                None if ws is None else ws.data_ptr(), part_idx.data_ptr(),
-                part_val.data_ptr(), idx.data_ptr(), vals.data_ptr(),
-                torch.cuda.current_stream().cuda_stream)
-    build.check_launch(lib, rc, "streaming_topk_retrieval")
-    streaming_topk_retrieval.launches += 1
-    if parts > 1:
-        streaming_topk_retrieval.merge_launches += 1
-    return idx, vals
-
-
-streaming_topk_retrieval.launches = 0
-streaming_topk_retrieval.merge_launches = 0
-
-
-@functools.lru_cache(maxsize=None)
-def _stream_launcher():
-    """(library, launcher) of the streaming kernel, its C types bound once."""
-    lib = build.load_library(_LIB)
-    lib.streaming_smem_bytes.argtypes = [_INT, _INT]
-    lib.streaming_workspace_bytes.argtypes = [_INT, _INT, _INT]
-    lib.streaming_smem_bytes.restype = ctypes.c_longlong
-    lib.streaming_workspace_bytes.restype = ctypes.c_longlong
-    fn = lib.streaming_topk_retrieval_launch
-    fn.argtypes = [_PTR, _INT, _PTR, _INT, _PTR] + [_INT] * 8 + [_PTR] * 6
-    fn.restype = _INT
-    return lib, fn
 
 
 @functools.lru_cache(maxsize=None)

@@ -41,29 +41,31 @@ def masked_topk(scores: torch.Tensor, seen: torch.Tensor, k: int) -> torch.Tenso
     return select_topk(masked, k)[1]
 
 
+def retrieval_route(device_type: str, dtype: torch.dtype) -> str:
+    """Which path ``retrieve_topk`` takes: ``"plain"``, the matmul + masked
+    top-k chain at the tables' own dtype, off CUDA and for float64 tables (a
+    float64 checkpoint), as the JAX ``retrieve_topk`` sends f64 to its
+    HIGHEST chain; else ``"kernel"``, the fused retrieval kernel (any
+    catalog, any k), whose wrapper raises on a dtype other than float32."""
+    if device_type == "cuda" and dtype != torch.float64:
+        return "kernel"
+    return "plain"
+
+
 def retrieve_topk(
     user_emb: torch.Tensor, item_emb: torch.Tensor, seen: torch.Tensor, k: int
 ) -> torch.Tensor:
-    """Full-catalog layer-0 retrieval: scores + mask + top-k, (U, k) int32.
-
-    On CUDA this launches the one-shot fused kernel when its score rows fit
-    one block's shared memory, else the item-streaming kernel, which takes
-    any catalog and any k; either raises when it cannot run. Elsewhere it is
-    the plain chain. All paths give the same indices on scores that are
-    exact in f32."""
-    if user_emb.device.type != "cuda":
+    """Full-catalog layer-0 retrieval: scores + mask + top-k, (U, k) int32,
+    along ``retrieval_route``; the choice is logged on CUDA. The kernel
+    raises when it cannot run. Both paths give the same indices on scores
+    that are exact in f32."""
+    dev = user_emb.device
+    route = retrieval_route(dev.type, user_emb.dtype)
+    if dev.type == "cuda":
+        get_logger().info("retrieve_topk: %s route (I=%d, D=%d, k=%d, %s)", route,
+                          *item_emb.shape, k, str(user_emb.dtype).replace("torch.", ""))
+    if route == "plain":
         return masked_topk(user_emb @ item_emb.T, seen, k)
-    from lgcnhs_tpu_torch.ops.cuda.retrieval import (
-        device_smem_limit,
-        fits_smem_retrieval,
-        fused_topk_retrieval,
-        streaming_topk_retrieval,
-    )
+    from lgcnhs_tpu_torch.ops.cuda.retrieval import fused_topk_retrieval
 
-    log = get_logger()
-    n_items, d = item_emb.shape
-    if fits_smem_retrieval(n_items, d, device_smem_limit(user_emb.device)):
-        log.info("retrieve_topk: one-shot fused kernel (I=%d, D=%d, k=%d)", n_items, d, k)
-        return fused_topk_retrieval(user_emb, item_emb, seen, k)[0]
-    log.info("retrieve_topk: streaming kernel (I=%d, D=%d, k=%d)", n_items, d, k)
-    return streaming_topk_retrieval(user_emb, item_emb, seen, k)[0]
+    return fused_topk_retrieval(user_emb, item_emb, seen, k)[0]

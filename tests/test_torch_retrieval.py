@@ -1,7 +1,7 @@
-"""Port retrieval (twin of the fused and streaming CUDA kernels, and
-``retrieve_topk``'s plain path) vs the JAX package: ``masked_topk`` and the
-Pallas ``fused_topk_retrieval`` / ``streaming_topk_retrieval`` in interpret
-mode.
+"""Port retrieval (the twin of the one CUDA retrieval kernel, which takes
+the place of both Pallas kernels, and ``retrieve_topk``'s plain path) vs
+the JAX package: ``masked_topk`` and the Pallas ``fused_topk_retrieval`` /
+``streaming_topk_retrieval`` in interpret mode.
 
 Dyadic, tie-heavy inputs (exact scores in f32) must give identical indices
 and values, including a user whose every score lies below the -1024 seen
@@ -87,14 +87,15 @@ def test_twin_matches_pallas_fused_exactly(exact_problem, k):
 
 @pytest.mark.parametrize("k,tile", [(10, 64), (100, 128), (37, 96)])
 def test_streaming_twin_matches_pallas_streaming_exactly(exact_problem, k, tile):
-    """Multi-tile merge (I=300 over tiles of 64..128) with exact ties across
-    tile borders."""
+    """The Pallas streaming kernel's multi-tile merge (I=300 over tiles of
+    64..128) with exact ties across tile borders, against the port's one
+    retrieval function, which takes its place."""
     ue, ie, seen = exact_problem
     j_idx, j_vals = jret.streaming_topk_retrieval(
         jnp.asarray(ue), jnp.asarray(ie), jnp.asarray(seen), k,
         item_tile=tile, interpret=True,
     )
-    idx, vals = _port(ue, ie, seen, k, fn=tret.streaming_topk_retrieval, item_tile=tile)
+    idx, vals = _port(ue, ie, seen, k)
     np.testing.assert_array_equal(idx, np.asarray(j_idx))
     np.testing.assert_array_equal(vals, np.asarray(j_vals))
 
@@ -119,10 +120,9 @@ def test_twin_tie_equivalent_on_continuous_inputs(k):
         jnp.asarray(ue), jnp.asarray(ie), jnp.asarray(seen), k, interpret=True
     )
     ref = np.where(seen, -1024.0, ue.astype(np.float64) @ ie.T.astype(np.float64))
-    for fn in (tret.fused_topk_retrieval, tret.streaming_topk_retrieval):
-        idx, _ = _port(ue, ie, seen, k, fn=fn)
-        agreement, gap = tie_equivalence(np.asarray(j_idx), idx, ref)
-        assert agreement >= 0.98 and gap <= 5e-4, (fn.__name__, agreement, gap)
+    idx, _ = _port(ue, ie, seen, k)
+    agreement, gap = tie_equivalence(np.asarray(j_idx), idx, ref)
+    assert agreement >= 0.98 and gap <= 5e-4, (agreement, gap)
 
 
 def test_retrieve_topk_plain_path_matches_jax(exact_problem):
@@ -135,15 +135,14 @@ def test_retrieve_topk_plain_path_matches_jax(exact_problem):
 
 def test_cpu_tensors_take_the_twin_and_count_no_launch(exact_problem):
     ue, ie, seen = exact_problem
-    before = (tret.fused_topk_retrieval.launches, tret.streaming_topk_retrieval.launches)
-    a = _port(ue, ie, seen, 10)
-    b = _port(ue, ie, seen, 10, fn=tret.streaming_topk_retrieval)
-    c = tret.fused_topk_retrieval_ref(
+    before = (tret.fused_topk_retrieval.launches, tret.fused_topk_retrieval.merge_launches)
+    got = _port(ue, ie, seen, 10)
+    want = tret.fused_topk_retrieval_ref(
         torch.from_numpy(ue), torch.from_numpy(ie), torch.from_numpy(seen), 10
     )
-    for got in (a, b):
-        np.testing.assert_array_equal(got[0], c[0].numpy())
-    assert (tret.fused_topk_retrieval.launches, tret.streaming_topk_retrieval.launches) == before
+    np.testing.assert_array_equal(got[0], want[0].numpy())
+    assert (tret.fused_topk_retrieval.launches,
+            tret.fused_topk_retrieval.merge_launches) == before
 
 
 @pytest.mark.parametrize("k", [0, I + 1])
@@ -154,48 +153,69 @@ def test_k_outside_the_catalog_raises(exact_problem, k):
 
 
 def test_guards_size_against_the_block_limit():
-    # ML-1M (3706 items, D=64): the one-shot kernel fits an H100 block
-    assert tret.fits_smem_retrieval(3706, 64, H100_SMEM_OPTIN)
-    assert not tret.fits_smem_retrieval(50_000, 64, H100_SMEM_OPTIN)
-    # streaming at k=100: 16 survivors between folds (retrieval.cu
-    # StreamSmem); two such blocks share an H100 SM (233,472 B, 1 KB each
-    # reserved)
-    tile = tret.pick_stream_tile(100)
-    assert tile == tret.STREAM_TILE == 16 and tret.stream_smem_bytes(100, tile) == 106_496
-    # the default tile grows with k (k / 8), up to 256
-    assert [tret.pick_stream_tile(k) for k in (1, 200, 1000, 20_000)] == [16, 25, 125, 256]
-    assert 2 * (tret.stream_smem_bytes(100, tile) + 1024) <= 233_472
-    # a survivor area is one 128-item step plus the tile, whatever k: one
-    # more survivor is a (key, id) for each of 32 users and for the ranked
-    # survivors of each of 8 warps
-    assert tret.stream_smem_bytes(200, 5) - tret.stream_smem_bytes(200, 4) == 4 * 2 * (32 + 8)
-    # a larger k leaves one block an SM; at a 16-entry tile the long lists
-    # stay in shared memory up to k=484, and past it (k=1000, 20,000: the
-    # parent's kernel took k=1000 in shared memory) the launcher moves them to
-    # a device-memory workspace, so every k runs
-    assert 2 * (tret.stream_smem_bytes(200, tile) + 1024) > 233_472
-    assert tret.stream_smem_bytes(484, tile) <= H100_SMEM_OPTIN
-    for k in (485, 1000, 20_000):
-        assert tret.stream_smem_bytes(k, tile) > H100_SMEM_OPTIN
+    # the one-shot kernel (retrieval.cu TopkSmem): its block memory takes
+    # neither the catalog nor the embedding width, only k. At k=100 two
+    # staged slices (22,528 B), four ints a user (768), a 48-survivor buffer
+    # for each of 48 users (18,432), the ranked survivors of 8 warps
+    # (6,400), and the running and merge lists in shared memory (44,800).
+    # An H100 SM has 233,472 B, 1 KB of it reserved a block: two such blocks
+    # (16 warps) an SM, as the launcher's fused_topk_resident_blocks reports
+    # on the card
+    assert tret.topk_block_bytes(100, H100_SMEM_OPTIN) == (92_928, 0)
+    # k=1: five blocks by shared memory (registers then decide); two up to
+    # k=146 (2 x (115,328 + 1,024) <= 233,472), one from k=147
+    assert tret.topk_block_bytes(1, H100_SMEM_OPTIN) == (42_240, 0)
+    assert tret.topk_block_bytes(146, H100_SMEM_OPTIN) == (115_328, 0)
+    assert tret.topk_block_bytes(147, H100_SMEM_OPTIN) == (115_776, 0)
+    # one more entry of k is a (key, id) for each of 48 users and 8 warps
+    assert (tret.topk_block_bytes(200, H100_SMEM_OPTIN)[0]
+            - tret.topk_block_bytes(199, H100_SMEM_OPTIN)[0]) == 4 * 2 * (48 + 8)
+    # the long lists stay in shared memory to k=407; past it the running
+    # lists go to a device-memory workspace (48 users x k x 8 B a block), so
+    # every k runs
+    assert tret.topk_block_bytes(407, H100_SMEM_OPTIN)[1] == 0
+    assert tret.topk_block_bytes(408, H100_SMEM_OPTIN)[1] == 4 * 48 * 2 * 408
+    assert tret.topk_block_bytes(1000, H100_SMEM_OPTIN) == (113_920, 384_000)
+    with pytest.raises(ValueError, match="a block needs"):
+        tret.topk_block_bytes(100, 40_000)
+    # k=1000 on the CPU: the twin, against JAX's masked_top_k
     rng = np.random.default_rng(9)
     ue, ie = dyadic(rng, (40, 8)), dyadic(rng, (1200, 8))
     seen = rng.random((40, 1200)) < 0.25
-    got = _port(ue, ie, seen, 1000, fn=tret.streaming_topk_retrieval)[0]
+    got = _port(ue, ie, seen, 1000)[0]
     want = np.asarray(jtopk.masked_topk(_jax_scores(ue, ie), jnp.asarray(seen), 1000))
     assert got.shape == (40, 1000)
     np.testing.assert_array_equal(got, want)
 
 
+@pytest.mark.parametrize("n_users,n_items,resident,parts,part_len", [
+    (6040, 3706, 2, 2, 1920),  # ML-1M: 126 user groups x 2 parts in 264 slots, one wave
+    (943, 1682, 2, 7, 256),  # ML-100K: 20 groups x 7 two-step parts, 140 of 264 slots
+    (6040, 49_410, 2, 2, 24_832),  # 252 blocks fill one wave 95% evenly
+    (6040, 3706, 1, 1, 3712),  # one block an SM: 126 of 132 slots
+    (40, 100, 2, 1, 128),
+])
+def test_topk_plan_fills_the_block_slots(n_users, n_items, resident, parts, part_len):
+    """The one-shot kernel's catalog parts on 132 SMs holding ``resident``
+    blocks each: spread evenly over waves where parts keep 32 steps, else
+    as many as fit one wave; whole 128-item steps, every part non-empty."""
+    assert tret.topk_plan(n_users, n_items, resident, 132) == (parts, part_len)
+    assert part_len % tret.STEP == 0
+    assert (parts - 1) * part_len < n_items <= parts * part_len
+
+
 @pytest.mark.parametrize("n_users,n_items,parts", [(6040, 49_410, 2), (128, 16_384, 26),
                                                    (70, 1000, 8), (6040, 100, 1)])
 def test_stream_parts_spread_blocks_evenly(n_users, n_items, parts):
-    """The streaming kernel's catalog parts on 132 SMs: whole 128-item
+    """``spread_parts`` (the kernel's split when parts keep 32 steps, and
+    fused serving's) on 132 SMs for groups of 32 users: whole 128-item
     steps, every part non-empty, blocks spread about evenly (the rule aims
     at 90%; rounding parts to whole steps can cost some of it)."""
-    got, part_len = tret.stream_parts(n_users, n_items, 132)
-    assert got == parts and part_len % tret.STREAM_STEP == 0
+    groups = -(-n_users // 32)
+    got, part_len = tret.spread_parts(groups, -(-n_items // 128), 128, 132)
+    assert got == parts and part_len % tret.STEP == 0
     assert (got - 1) * part_len < n_items <= got * part_len
-    blocks = -(-n_users // tret.STREAM_USERS) * got
+    blocks = groups * got
     assert got == -(-n_items // 128) or blocks / (-(-blocks // 132) * 132) >= 0.75
 
 

@@ -9,10 +9,12 @@ Each DIR holds a variant of some of ``lgcnhs_tpu_torch/ops/cuda``'s
 ``lgcnhs_tpu_torch/ops/cuda`` itself for the current sources. A
 ``propagation.cu`` may also have the launcher of the earlier two-layout
 kernel, which read R and a transposed copy of it (``dual_matmul_launch``
-without ``dual_matmul_smem_bytes``); it is then given that copy. Likewise a
-``retrieval.cu`` with the earlier streaming launcher (item tiles of at least
-k items; no ``streaming_workspace_bytes``) gets the tile its package picked: the
-widest power of two up to 2048 whose block fits (2048 at k=100).
+without ``dual_matmul_smem_bytes``); it is then given that copy. A
+``retrieval.cu`` of the package before its two retrieval kernels became one
+has a streaming kernel too (``streaming_topk_retrieval_launch`` with
+``streaming_workspace_bytes``), which the ``streaming`` kind times over the
+50k-item catalog with that package's plan (32-user groups, ``spread_parts``,
+a survivor slack of k / 8 from 16 to 256, or ``DIR:tile=N``).
 A ``fusion_serve.cu`` with the earlier launcher (A as CSR, f32 W; no
 ``fused_serve_smem_bytes``) gets A in CSR, built once; one with the
 tensor-core launcher gets A and W as bf16 parts, split once
@@ -22,12 +24,13 @@ that the kernel uses every bf16 part of W). A kind is timed for the variants
 that have its source; fused serving's bound, the plain twin and the
 matmul+topk composition are timed once beside the variants.
 
-Every variant is built with the package's nvcc flags (``DIR:tile=N`` sets
-the streaming kernel's ``item_tile``, else it is ``pick_stream_tile(k)``), checked
-against the plain twins, and timed at the main path's shapes (k=100, or ``--k``): one-shot
-retrieval, fused serving and ``dual_matmul`` (int8 R, bf16 X and Y, D=64)
-at ML-1M scale (6040 x 3706), streaming retrieval over a 50k-item synthetic
-catalog. ``--items N`` serves over a synthetic catalog instead, drawn as
+Every variant is built with the package's nvcc flags (``DIR:parts=N``
+splits the retrieval kernel's catalog into N parts instead of its plan's),
+checked against the plain twins, and timed at the main path's shapes
+(k=100, or ``--k``): retrieval, fused serving and ``dual_matmul`` (int8 R,
+bf16 X and Y, D=64) at ML-1M scale (6040 x 3706), an older streaming
+kernel over a 50k-item synthetic catalog. ``--items N`` runs retrieval and
+fused serving over a synthetic catalog instead, drawn as
 ``cli/retrieve --dataset synthetic --items N`` draws it (6040 users,
 1,000,209 interactions; N = 50,000 keeps the 49,410 items that
 ``chip_smoke.py`` serves); the earlier serving launcher is
@@ -157,14 +160,16 @@ def main(variants, kinds):
                                "synthetic_interactions": 1_000_209})
     else:
         gs, ues, ies, seens = g, ue, ie, seen
-    A = torch.from_numpy(interaction_matrix(gs.n_users, gs.n_items, gs.train, gs.val)).to(dev)
-    W = hybrid_transfer(A, general_spreading_matrix(A), 0.6)
-    serve_ops = fs.serve_operands(ues, ies, A, W) if "serve" in kinds else None
+    A = W = serve_ops = a_val = a_col = a_ptr = None
+    if "serve" in kinds:  # W alone is 9.8 GB at 49,410 items
+        A = torch.from_numpy(interaction_matrix(gs.n_users, gs.n_items, gs.train, gs.val)).to(dev)
+        W = hybrid_transfer(A, general_spreading_matrix(A), 0.6)
+        serve_ops = fs.serve_operands(ues, ies, A, W)
+        rows, cols = A.nonzero(as_tuple=True)
+        a_val, a_col = A[rows, cols].contiguous(), cols.to(torch.int32)
+        a_ptr = torch.zeros(gs.n_users + 1, dtype=torch.int32, device=dev)
+        a_ptr[1:] = torch.cumsum(torch.bincount(rows, minlength=gs.n_users), 0)
     serve_old = (ues, ies.T.contiguous(), seens.view(torch.uint8))
-    rows, cols = A.nonzero(as_tuple=True)
-    a_val, a_col = A[rows, cols].contiguous(), cols.to(torch.int32)
-    a_ptr = torch.zeros(gs.n_users + 1, dtype=torch.int32, device=dev)
-    a_ptr[1:] = torch.cumsum(torch.bincount(rows, minlength=gs.n_users), 0)
     R8 = device_binary_factors(g.n_users, g.n_items, g.train, dev)[0]
     R8p, R8T = prop.pad_for_dual(R8), R8.t().contiguous()
     X, Y = ie.to(torch.bfloat16), ue.to(torch.bfloat16)
@@ -185,18 +190,15 @@ def main(variants, kinds):
             dev, "synthetic",
             {"synthetic_users": 6040, "synthetic_items": 50_000,
              "synthetic_interactions": 1_000_209})
-    serving = {False: (ue, ie.T.contiguous(), seen.view(torch.uint8))}
+    serving = {False: (ues, ies.T.contiguous(), seens.view(torch.uint8))}
     if ueb is not None:
         serving[True] = (ueb, ieb.T.contiguous(), seenb.view(torch.uint8))
     def stream_tile(lib):
         spec = lib_key(lib)
         tiles = [int(o[5:]) for o in spec.split(":")[1:] if o.startswith("tile=")]
-        return tiles[-1] if tiles else rt.pick_stream_tile(K)
+        return tiles[-1] if tiles else max(16, min(256, K // 8))
 
     limit = build.device_smem_limit("retrieval", dev)
-    old_tile = 2048  # the earlier launcher: 4 * 8 * (64 + 2 tile + 4 k) bytes a block
-    while old_tile > K and 32 * (64 + 2 * old_tile + 4 * K) > limit:
-        old_tile //= 2
     stream_ws = {}
 
     def stream_workspace(lib):
@@ -208,13 +210,14 @@ def main(variants, kinds):
             rlib.streaming_workspace_bytes.argtypes = [INT, INT, INT]
             rlib.streaming_workspace_bytes.restype = ctypes.c_longlong
             per_block = rlib.streaming_workspace_bytes(K, stream_tile(lib), limit)
-            blocks = -(-ueb.shape[0] // rt.STREAM_USERS) * parts
+            blocks = -(-ueb.shape[0] // 32) * parts
             stream_ws[key] = torch.empty(blocks * per_block // 4, dtype=torch.int32,
                                          device=dev) if per_block else None
         return None if stream_ws[key] is None else stream_ws[key].data_ptr()
     if ueb is not None:
         uTp, itTp = rt._padded_t(ueb), rt._padded_t(ieb)
-        parts, part_len = rt.stream_parts(ueb.shape[0], ieb.shape[0], n_sms)
+        parts, part_len = rt.spread_parts(-(-ueb.shape[0] // 32), -(-ieb.shape[0] // 128),
+                                          128, n_sms)
         part_idx = torch.empty(parts * ueb.shape[0] * K, dtype=torch.int32, device=dev)
         part_val = torch.empty(parts * ueb.shape[0] * K, dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream().cuda_stream
@@ -243,12 +246,14 @@ def main(variants, kinds):
         D = u.shape[1]
         idx = torch.empty((U, K), dtype=torch.int32, device=dev)
         vals = torch.empty((U, K), dtype=torch.float32, device=dev)
-        if kind == "fused":
+        if kind == "fused" and hasattr(lib["retrieval"], "fused_topk_smem_bytes"):
+            return launch_topk(lib)
+        if kind == "fused":  # the earlier launcher: 8 users' score rows a block
             fn = lib["retrieval"].fused_topk_retrieval_launch
             fn.argtypes = [P, P, P, INT, INT, INT, INT, P, P, P]
             rc = fn(u.data_ptr(), itT.data_ptr(), s8.data_ptr(), U, I, D, K,
                     idx.data_ptr(), vals.data_ptr(), stream)
-        elif kind == "streaming" and hasattr(lib["retrieval"], "streaming_workspace_bytes"):
+        elif kind == "streaming":
             fn = lib["retrieval"].streaming_topk_retrieval_launch
             fn.argtypes = [P, INT, P, INT, P] + [INT] * 8 + [P] * 6
             rc = fn(uTp.data_ptr(), uTp.shape[1], itTp.data_ptr(), itTp.shape[1],
@@ -256,11 +261,6 @@ def main(variants, kinds):
                     stream_workspace(lib),
                     part_idx.data_ptr(), part_val.data_ptr(), idx.data_ptr(),
                     vals.data_ptr(), stream)
-        elif kind == "streaming":  # the earlier launcher: item tiles of `tile` >= k items
-            fn = lib["retrieval"].streaming_topk_retrieval_launch
-            fn.argtypes = [P, P, P, INT, INT, INT, INT, INT, P, P, P]
-            rc = fn(u.data_ptr(), itT.data_ptr(), s8.data_ptr(), U, I, D, K, old_tile,
-                    idx.data_ptr(), vals.data_ptr(), stream)
         elif hasattr(lib["fusion_serve"], "fused_serve_smem_bytes"):  # tensor-core launcher
             flib = lib["fusion_serve"]
             got = fs.launch_kernel(flib, fs.bind(flib), serve_ops, seens, K)
@@ -279,7 +279,45 @@ def main(variants, kinds):
             raise RuntimeError(f"{kind}: CUDA error {rc}")
         return idx, vals
 
-    twins = {"fused": lambda: rt.fused_topk_retrieval_ref(ue, ie, seen, K),
+    topk_ops = {}
+
+    def launch_topk(lib):
+        """One launch of the retrieval kernel of variant ``lib`` on the fused
+        kind's inputs, planned from its own occupancy as the wrapper plans."""
+        key = lib_key(lib)
+        if key not in topk_ops:
+            rlib = lib["retrieval"]
+            fn = rt.bind_topk(rlib)
+            resident = rlib.fused_topk_resident_blocks(K, limit)
+            per_block = rlib.fused_topk_workspace_bytes(K, limit)
+            U, I = seens.shape
+            tparts, tlen = rt.topk_plan(U, I, resident, n_sms)
+            forced = [int(o[6:]) for o in key.split(":")[1:] if o.startswith("parts=")]
+            if forced:  # DIR:parts=N: N parts of whole steps
+                tlen = -(-I // (forced[-1] * rt.STEP)) * rt.STEP
+                tparts = -(-I // tlen)
+            n = tparts * U * K if tparts > 1 else 0
+            tws = (torch.empty(-(-U // rt.TOPK_USERS) * tparts * per_block // 4,
+                               dtype=torch.int32, device=dev) if per_block else None)
+            topk_ops[key] = (fn, rt._padded_t(ues), rt._padded_t(ies), tparts, tlen, tws,
+                             torch.empty(n, dtype=torch.int32, device=dev),
+                             torch.empty(n, dtype=torch.float32, device=dev),
+                             torch.empty(U, dtype=torch.int64, device=dev))
+            print(f"fused {key}: {resident} blocks an SM at k={K}, {tparts} parts of {tlen} "
+                  "items", flush=True)
+        fn, uT, itT, tparts, tlen, tws, pidx, pval, bound = topk_ops[key]
+        U, I = seens.shape
+        idx = torch.empty((U, K), dtype=torch.int32, device=dev)
+        vals = torch.empty((U, K), dtype=torch.float32, device=dev)
+        rc = fn(uT.data_ptr(), uT.shape[1], itT.data_ptr(), itT.shape[1],
+                seens.view(torch.uint8).data_ptr(), U, I, uT.shape[0], K, tparts, tlen, limit,
+                None if tws is None else tws.data_ptr(), bound.data_ptr(), pidx.data_ptr(),
+                pval.data_ptr(), idx.data_ptr(), vals.data_ptr(), stream)
+        if rc != 0:
+            raise RuntimeError(f"fused: CUDA error {rc}")
+        return idx, vals
+
+    twins = {"fused": lambda: rt.fused_topk_retrieval_ref(ues, ies, seens, K),
              "streaming": lambda: rt.fused_topk_retrieval_ref(ueb, ieb, seenb, K),
              "serve": lambda: fs.fused_lgcnhs_serve_ref(ues, ies, A, W, seens, K),
              "dual": lambda: prop.dual_matmul_ref(R8, X, Y)}
@@ -317,6 +355,11 @@ def main(variants, kinds):
 
     for kind in kinds:
         have = [v for v in variants if SOURCES[kind] in libs[v]]
+        if kind == "streaming":  # only copies from before the two kernels became one
+            have = [v for v in have if hasattr(libs[v]["retrieval"], "streaming_workspace_bytes")]
+        if kind == "fused":  # the earlier kernel keeps 8 users' score rows in a block
+            have = [v for v in have if hasattr(libs[v]["retrieval"], "fused_topk_smem_bytes")
+                    or 4 * 8 * (64 + seens.shape[1]) <= limit]
         if kind == "serve":  # the earlier kernel keeps 4 users' rows in a block
             have = [v for v in have if hasattr(libs[v]["fusion_serve"], "fused_serve_smem_bytes")
                     or 4 * 4 * (64 + W.shape[0]) <= limit]
@@ -359,6 +402,33 @@ def main(variants, kinds):
                   flush=True)
         if kind == "serve":
             serve_baselines(ues, ies, A, W, seens, smi)
+        if kind == "fused":
+            retrieval_baselines(ues, ies, seens, smi)
+
+
+def retrieval_baselines(ue, ie, seen, smi):
+    """Retrieval's bound on these inputs (chip_smoke.py's: each input read
+    once, the lists written once; 2 U I D operations at the f32 peak), and
+    the ms of the plain twin and of the matmul+topk composition on the same
+    inputs (median of 3 CUDA-event timings; device ms from torch.profiler,
+    every kernel of a call)."""
+    U, D = ue.shape
+    I = ie.shape[0]
+    t_bytes = (4 * (U * D + I * D) + U * I + 8 * U * K) / PEAK_BYTES_PER_S
+    t_ops = 2 * U * I * D / PEAK_F32_FLOP_PER_S
+    by = "bytes" if t_bytes >= t_ops else "operations"
+    print(f"fused bound U={U} I={I} D={D} k={K}: {max(t_bytes, t_ops) * 1e3:.4f} ms by {by} "
+          f"[{smi}]", flush=True)
+
+    def composition():
+        return torch.topk(torch.matmul(ue, ie.T).masked_fill_(seen, -1024.0), K, dim=1)
+
+    for name, fn in (("matmul+topk", composition),
+                     ("twin", lambda: rt.fused_topk_retrieval_ref(ue, ie, seen, K))):
+        ms = events_ms(fn)
+        print(f"fused {name} U={U} I={I}: {ms:.4f} ms; device {all_device_ms(fn):.4f} ms [{smi}]",
+              flush=True)
+        torch.cuda.empty_cache()
 
 
 def serve_baselines(ue, ie, A, W, seen, smi):
