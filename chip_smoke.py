@@ -56,6 +56,18 @@ neither JAX nor ``lgcnhs_tpu``. Phases:
    Every output is checked against the plain chain, the training history for finite values and a
    falling loss. Last, 20 epochs on the kernel route and on the twin route
    from one seed, compared within the stated tolerance.
+   The main path, ``lgcnhs_tpu_torch.cli.main``, after the cli/retrieve
+   runs: all seven models at ML-1M on seeded random checkpoints (a
+   LightGCN-shaped one for LightGCN and SpreadLightGCN), LightGCNOpti and
+   SpreadLightGCNOpti over the 49,410-item catalog, and both on the
+   trained checkpoint (loaded, not trained again; R@100 above the random
+   tables'). Launch counts are set to 0 before each run and read after:
+   exactly one ``fused_topk_retrieval`` for LightGCN[Opti], none of any
+   kernel for the other five (no serving kernel, no training). Each list is
+   held against the same recommendation computed on the CPU (identical, or
+   tie-equivalent under f64 scores computed on the card), and the metric
+   dict against the card's list evaluated on the CPU (equal, or an
+   unrounded value within 1e-5 relative across a 5-decimal boundary).
 5. Timings at the main path's shapes: kernel, plain twin, and the nearest
    library composition (torch.matmul + torch.topk, two bf16 torch.matmul
    for ``dual_matmul``; no single PyTorch call computes these functions, so
@@ -65,7 +77,11 @@ neither JAX nor ``lgcnhs_tpu``. Phases:
    its design at the bf16 peak); retrieval also over the 49,410-item
    catalog at k=100 and k=1000; the train step's ms and examples/s over a
    synchronized steady window, its device-busy ms and idle share, and its
-   device time by kernel from ``torch.profiler``.
+   device time by kernel from ``torch.profiler``. ``cli/main``'s host
+   seconds per run, split into Step 2 (recommend) and Step 3 (evaluate),
+   its peak device memory, and the host ms of each device stage of
+   SpreadLightGCNOpti's (diffusion, G, G * F, ranking, evaluation) at
+   ML-1M and over 49,410 items.
 
 Prints one PASS/FAIL line per check, then (all passed) the kernel JSON line,
 the ``nvidia-smi`` name/power-limit line, and the final
@@ -76,6 +92,7 @@ from __future__ import annotations
 
 import csv
 import json
+import logging
 import math
 import os
 import shutil
@@ -203,20 +220,28 @@ def main() -> int:
         return 2
     try:
         from lgcnhs_tpu_torch import config as tcfg
+        from lgcnhs_tpu_torch.cli import main as cli_main
         from lgcnhs_tpu_torch.cli import retrieve
         from lgcnhs_tpu_torch.data.datasets import load_dataset
         from lgcnhs_tpu_torch.data.graph import (
             build_graph, interaction_matrix, pos_bool_matrix, unique_edges,
         )
-        from lgcnhs_tpu_torch.models.lightgcn import LightGCNParams, init_lightgcn_opti
-        from lgcnhs_tpu_torch.models.recommenders import checkpoint_path
+        from lgcnhs_tpu_torch.eval import metrics as tev
+        from lgcnhs_tpu_torch.models.fusion import allocate_matrix
+        from lgcnhs_tpu_torch.models.lightgcn import (
+            LightGCNParams, init_lightgcn, init_lightgcn_opti,
+        )
+        from lgcnhs_tpu_torch.models.recommenders import checkpoint_path, recommend
+        from lgcnhs_tpu_torch.models.spread import SPREAD_METHODS, resolve_spread_variant
+        from lgcnhs_tpu_torch.ops import diffusion as tdiff
+        from lgcnhs_tpu_torch.ops import metrics_ops
         from lgcnhs_tpu_torch.ops.cuda import build
         from lgcnhs_tpu_torch.ops.cuda import fusion_serve as fs
         from lgcnhs_tpu_torch.ops.cuda import propagation as prop
         from lgcnhs_tpu_torch.ops.cuda import retrieval as rt
         from lgcnhs_tpu_torch.ops.diffusion import general_spreading_matrix, hybrid_transfer
         from lgcnhs_tpu_torch.ops.topk import (
-            MASK_VALUE, masked_topk, retrieval_route, select_topk,
+            MASK_VALUE, masked_topk, rank_exclude_seen_topk, retrieval_route, select_topk,
         )
         from lgcnhs_tpu_torch.train import trainer
         from lgcnhs_tpu_torch.train.trainer import load_checkpoint, save_checkpoint
@@ -574,15 +599,19 @@ def main() -> int:
             ("LightGCNOpti", big, K_SLICE), ("SpreadLightGCNOpti", big, K_SLICE),
             ("LightGCNOpti", big, K_LARGE)]
 
-    def make_cell(model, args, k, workdir, dtype=torch.float32):
-        """(config, graph, seeded random tables) of one run, its checkpoint
-        written where cli/retrieve looks for it."""
+    def run_config(model, args, workdir, k=K_SLICE):
+        """The config a CLI run with these arguments resolves."""
         over = {"k": k}
         if args is big:
             over.update(synthetic_users=6040, synthetic_items=BIG_CATALOG,
                         synthetic_interactions=1_000_209)
-        cfg = tcfg.load_config(env="prod", dataset=args[1], model=model, workdir=workdir,
-                               overrides=over)
+        return tcfg.load_config(env="prod", dataset=args[1], model=model, workdir=workdir,
+                                overrides=over)
+
+    def make_cell(model, args, k, workdir, dtype=torch.float32):
+        """(config, graph, seeded random tables) of one run, its checkpoint
+        written where cli/retrieve looks for it."""
+        cfg = run_config(model, args, workdir, k)
         splits, uf, itf = load_dataset(cfg)
         g = build_graph(splits)
         params = init_lightgcn_opti(torch.Generator().manual_seed(SEED), uf, itf, 64)
@@ -720,6 +749,164 @@ def main() -> int:
     check.guard("float64 checkpoints", float64_checks)
     torch.cuda.empty_cache()
 
+    # -- 4, the main path: cli/main for all seven models --------------------
+    print("[phase 4] cli/main end to end", flush=True)
+    main_models = ("ProbS", "HeatS", "HybridS", "LightGCN", "LightGCNOpti",
+                   "SpreadLightGCN", "SpreadLightGCNOpti")
+    main_kernels = {**kernels, "dual_matmul": prop.dual_matmul}
+    # LightGCN and SpreadLightGCN read a LightGCN-shaped checkpoint
+    save_checkpoint(checkpoint_path(run_config("LightGCN", ml1m, work)),
+                    init_lightgcn(torch.Generator().manual_seed(SEED), graph.n_users,
+                                  graph.n_items, 64))
+
+    class StepClock(logging.Handler):
+        """Host clock of cli/main's log lines: Step 2 (recommend) runs from
+        its line to Step 3's, Step 3 (evaluate) to the metric line."""
+
+        def __init__(self):
+            super().__init__(logging.INFO)
+            self.marks = {}
+
+        def emit(self, record):
+            msg = record.getMessage()
+            for mark, found in (("step2", msg.startswith("Step2:")),
+                                ("step3", msg.startswith("Step3:")),
+                                ("end", "Test Accurate]" in msg)):
+                if found:
+                    self.marks[mark] = record.created
+
+    clock = StepClock()
+    logging.getLogger("lgcnhs").addHandler(clock)
+    main_rows, main_metrics = [], {}
+    main_launches = dict.fromkeys(main_kernels, 0)  # over every cli/main run
+
+    def main_ref64(model, cfg, g):
+        """(U, I) f64 scores a list is read against, computed on the card:
+        the masked layer-0 scores, the spread F or the fused G * F (seen
+        entries as computed: the seen filter is checked apart), F by the
+        algorithm the f32 run picks."""
+        seen = cuda(pos_bool_matrix(g.n_users, g.n_items, g.train, g.val))
+        if model in SPREAD_METHODS:
+            lam, transpose_w, _ = resolve_spread_variant(model, cfg.dataset,
+                                                         cfg.hparams.lambda_)
+        else:
+            params = load_checkpoint(checkpoint_path(cfg), dev)
+            ue, ie = params.user_emb.double(), params.item_emb.double()
+            if model in ("LightGCN", "LightGCNOpti"):
+                return retrieval_ref64(ue, ie, seen)
+            lam, transpose_w = cfg.hparams.lambda_, False
+        A = cuda(interaction_matrix(g.n_users, g.n_items, g.train, g.val, dtype=np.float64))
+        algo = {"dense": tdiff.diffusion_scores,
+                "factored": tdiff.user_factored_diffusion_scores}[
+            tdiff.choose_diffusion(g.n_users, g.n_items)]
+        F = algo(A, torch.tensor(lam, dtype=torch.float32).double(), transpose_w=transpose_w)
+        del A
+        if model in SPREAD_METHODS:
+            return F
+        return F.mul_(torch.where(seen, torch.full_like(F, MASK_VALUE), ue @ ie.T))
+
+    def unrounded(ctx, rec, direct):
+        """P, R, NDCG, H, I before rounding; ``direct``: I without the (I, I)
+        similarity matrix (``internal_similarity_direct``)."""
+        p, r, n = tev.accuracy_unrounded(ctx, rec)
+        if direct:
+            rec_t = ctx.on_device(rec)
+            h = float(metrics_ops.hamming_distance(rec_t, ctx.n_items))
+            i = float(metrics_ops.internal_similarity_direct(
+                rec_t, ctx.on_device(ctx.interaction), ctx.on_device(ctx.item_deg)))
+        else:
+            h, i = tev.diversity_unrounded(ctx, rec)
+        return {"P": p, "R": r, "NDCG": n, "H": h, "I": i}
+
+    def metrics_disagree(card, card_un, cpu_un):
+        """Keys where the card's rounded dict departs from the CPU's values: a
+        rounded value must equal the CPU's, or the two unrounded values lie
+        within 1e-5 relative on two sides of a 5-decimal boundary; F1 (from
+        the rounded P and R) must equal the CPU's where P and R do."""
+        bad = [key for key, v in cpu_un.items()
+               if card[key] != round(v, 5)
+               and not (card[key] == round(card_un[key], 5)
+                        and abs(card_un[key] - v) <= 1e-5 * abs(v))]
+        p, r = round(cpu_un["P"], 5), round(cpu_un["R"], 5)
+        f1 = 0.0 if p + r == 0 else round(2 * p * r / (p + r), 5)
+        if (card["P"], card["R"]) == (p, r) and card["F1"] != f1:
+            bad.append("F1")
+        return bad
+
+    def main_run(model, args, workdir, label):
+        """cli/main on the card, every launch count set to 0 just before it
+        and read just after; its list and metrics held against the CPU."""
+        for fn in main_kernels.values():
+            fn.launches = 0
+        clock.marks.clear()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        metrics = cli_main.main(["--device", "cuda", "--workdir", workdir, "--model", model,
+                                 *args])
+        host_s = time.perf_counter() - t0
+        counted = {name: fn.launches for name, fn in main_kernels.items()}
+        for name, n in counted.items():
+            main_launches[name] += n
+        marks = clock.marks
+        main_rows.append({"run": label, "host_s": host_s,
+                          "step2_s": marks["step3"] - marks["step2"],
+                          "step3_s": marks["end"] - marks["step3"],
+                          "peak_device_gb": torch.cuda.max_memory_allocated() / 1e9})
+        main_metrics[label] = metrics
+        print(f"[phase 4] cli/main {label}: {json.dumps(metrics)} in {host_s:.2f} s, "
+              f"launches {counted}", flush=True)
+        want = {name: int(name == "fused_topk_retrieval"
+                          and model in ("LightGCN", "LightGCNOpti")) for name in main_kernels}
+        check(f"cli/main {label}: launches {want} (no serving kernel, no training)",
+              counted == want, f"{counted}")
+
+        cfg = run_config(model, args, workdir)
+        g = graph if args is ml1m else cells[("LightGCNOpti", "synthetic", K_SLICE)][1]
+        rec = np.load(os.path.join(cfg.recommend_path, f"all_user_recommend_{model}_{cfg.k}.npy"))
+        got = cuda(rec).long()
+        k = cfg.k
+        check(f"cli/main {label}: shape, id range, distinct ids",
+              tuple(rec.shape) == (g.n_users, k) and bool(((got >= 0) & (got < g.n_items)).all())
+              and bool((got.sort(dim=1)[0].diff(dim=1) > 0).all()))
+        seen = cuda(pos_bool_matrix(g.n_users, g.n_items, g.train, g.val))
+        if model not in SPREAD_METHODS or resolve_spread_variant(
+                model, cfg.dataset, cfg.hparams.lambda_)[2]:
+            enough = (~seen).sum(dim=1) >= k
+            hits = seen.gather(1, got)[enough].any(dim=1)
+            check(f"cli/main {label}: no seen item for users with >= {k} unseen",
+                  not bool(hits.any()), f"{int(hits.sum())} users violate")
+        del seen
+        # the same recommendation on the CPU, and the f64 scores on the card
+        t0 = time.perf_counter()
+        want_rec = recommend(g, cfg, "cpu")
+        cpu_s = time.perf_counter() - t0
+        ref = main_ref64(model, cfg, g)
+        agreement, gap = tie_equivalence(torch, cuda(want_rec), got, ref)
+        check(f"cli/main {label}: the list identical to the CPU run's, or tie-equivalent "
+              "under f64", agreement == 1.0 or (agreement >= AGREEMENT_MIN and gap <= GAP_MAX),
+              f"agreement {agreement:.6f}, mismatched-slot max relative gap {gap:.3e}; "
+              f"CPU run {cpu_s:.2f} s")
+        del ref
+        torch.cuda.empty_cache()
+        # the metrics: the card's against the card's list evaluated on the
+        # CPU (past 10,000 items without the (I, I) similarity matrix: 29.5
+        # TFLOP on the CPU at 49,410 items)
+        ctx_card = tev.EvalContext.build(g.n_users, g.n_items, g.test, g.train, g.val, dev)
+        ctx_cpu = tev.EvalContext.build(g.n_users, g.n_items, g.test, g.train, g.val, "cpu")
+        card_un = unrounded(ctx_card, rec, False)
+        cpu_un = unrounded(ctx_cpu, rec, g.n_items > 10_000)
+        torch.cuda.empty_cache()
+        bad = metrics_disagree(metrics, card_un, cpu_un)
+        check(f"cli/main {label}: metrics equal the CPU's (or differ only across a "
+              "5-decimal boundary within 1e-5)", not bad,
+              f"disagree on {bad}; card {card_un}, CPU {cpu_un}")
+
+    for model in main_models:
+        check.guard(f"cli/main {model}", main_run, model, ml1m, work, f"{model} movielens1m")
+    for model in ("LightGCNOpti", "SpreadLightGCNOpti"):
+        check.guard(f"cli/main {model} 49,410 items", main_run, model, big, work,
+                    f"{model} {BIG_CATALOG}-item draw")
+
     # the training slice: an empty workdir, so cli/retrieve trains first
     print(f"[phase 4] cli/retrieve trains LightGCNOpti ({TRAIN_EPOCHS} epochs) and serves",
           flush=True)
@@ -759,6 +946,15 @@ def main() -> int:
     params_t = load_checkpoint(checkpoint_path(cfg_t), dev)
     output_checks("SpreadLightGCNOpti", "movielens1m (trained)", cfg_t, graph, params_t, rec,
                   "fused_lgcnhs_serve")
+
+    # cli/main on the trained checkpoint: it must load it, not train again
+    for model in ("LightGCNOpti", "SpreadLightGCNOpti"):
+        label = f"{model} movielens1m trained"
+        check.guard(f"cli/main {label}", main_run, model, ml1m, train_work, label)
+        trained = main_metrics.get(label, {}).get("R", 0.0)
+        random = main_metrics.get(f"{model} movielens1m", {}).get("R", 1.0)
+        check(f"cli/main {model}: R@{K_SLICE} of the trained tables above the random tables'",
+              trained > random, f"{trained} against {random}")
 
     def twin_route_compare():
         """TWIN_EPOCHS epochs from one seed on the kernel route and on the
@@ -1010,6 +1206,63 @@ def main() -> int:
           f"window {step_wall} ms/step, device busy {busy_ms:.4f} ms/step "
           f"(idle share {idle}), dual_matmul kernels {dual_step_ms:.4f} ms/step; top kernels "
           f"{json.dumps([(k[:60], round(v, 5)) for k, v in top])} [{smi}]", flush=True)
+
+    for row in report:
+        row["cli_main_launches"] = main_launches[row["name"]]
+    # cli/main: host seconds per run and step (phase 4's runs), then where
+    # the device stages of SpreadLightGCNOpti go
+    for row in main_rows:
+        print(f"[phase 5] cli/main {row['run']}: {row['host_s']:.4f} s host (Step 2 recommend "
+              f"{row['step2_s']:.4f} s, Step 3 evaluate {row['step3_s']:.4f} s), peak device "
+              f"memory {row['peak_device_gb']:.2f} GB [{smi}]", flush=True)
+    print(f"[phase 5] cli/main rows {json.dumps(main_rows)}", flush=True)
+
+    def host_ms(fn, reps=3):
+        """Median host ms of fn() with the card synchronized around it."""
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            del out
+        return sorted(times)[reps // 2]
+
+    def main_breakdown(key):
+        """Host ms of each device stage of cli/main's SpreadLightGCNOpti
+        recommendation and evaluation, with the data already on the card."""
+        cfg, g, params = cells[key]
+        P = LightGCNParams(params.user_emb.to(dev), params.item_emb.to(dev))
+        A = cuda(interaction_matrix(g.n_users, g.n_items, g.train, g.val))
+        seen = cuda(pos_bool_matrix(g.n_users, g.n_items, g.train, g.val))
+        lam = torch.tensor(cfg.hparams.lambda_, dtype=torch.float32)
+        F_new = allocate_matrix(P, seen) * tdiff.diffusion_scores_auto(A, lam)
+        rec = rank_exclude_seen_topk(F_new, seen, K_SLICE)
+        ctx = tev.EvalContext.build(g.n_users, g.n_items, g.test, g.train, g.val, dev)
+        rec_t, inter, deg = ctx.on_device(rec), ctx.on_device(ctx.interaction), \
+            ctx.on_device(ctx.item_deg)
+        stages = {
+            f"diffusion ({tdiff.choose_diffusion(g.n_users, g.n_items)})":
+                lambda: tdiff.diffusion_scores_auto(A, lam),
+            "G": lambda: allocate_matrix(P, seen),
+            "G * F": lambda: F_new * F_new,  # one (U, I) product, G * F's cost
+            "ranking (rank_exclude_seen_topk, two width-I sorts)":
+                lambda: rank_exclude_seen_topk(F_new, seen, K_SLICE),
+            "evaluate (six metrics, host arrays moved in)":
+                lambda: tev.evaluate_recommendations(ctx, rec),
+            "of which I@k (similarity matrix and bilinear form)":
+                lambda: metrics_ops.internal_similarity(rec_t, inter, deg),
+        }
+        ms = {name: host_ms(fn) for name, fn in stages.items()}
+        print(f"[phase 5] cli/main SpreadLightGCNOpti {g.n_users}x{g.n_items} stages, host ms "
+              f"on the card: {json.dumps(ms)} [{smi}]", flush=True)
+        del A, seen, F_new, rec_t, inter
+        torch.cuda.empty_cache()
+
+    for key in (("SpreadLightGCNOpti", "movielens1m", K_SLICE),
+                ("SpreadLightGCNOpti", "synthetic", K_SLICE)):
+        check.guard(f"cli/main stages {key[1]}", main_breakdown, key)
 
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
     if check.failures:

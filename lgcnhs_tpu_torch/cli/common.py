@@ -1,10 +1,15 @@
-"""Shared CLI plumbing: argument parsing, config and device.
+"""Shared CLI plumbing: argument parsing, config, device and pipeline
+assembly.
 
-Port of ``base_parser`` / ``config_from_args`` in
-``lgcnhs_tpu/cli/common.py``. The JAX-only flags (platform, mesh, fetch,
-scan chunking, COO table sharding, profiling) have no counterpart; flags of
-stages not ported yet (raw-data ingestion, artifact cache) arrive with
-those stages. ``--device`` picks the card (default) or the CPU.
+Port of ``base_parser``, ``config_from_args`` and ``load_pipeline`` in
+``lgcnhs_tpu/cli/common.py``. ``--device`` picks the card (default) or the
+CPU; ``--no-cache`` makes ``cli/main`` ignore its cached lists
+(``runtime/cache.ArtifactCache``). Flags left out, and why:
+
+- ``--platform``, ``--profile``, ``--scan-chunk``: JAX-only (the platform
+  pin, ``jax.profiler``, the ``lax.scan`` chunking);
+- ``--mesh``, ``--coo-table-sharding``: the mesh is ROADMAP queue 1 item 7;
+- ``--data-dir``, ``--fetch``: raw-data ingestion is ROADMAP queue 1 item 5.
 """
 from __future__ import annotations
 
@@ -13,6 +18,9 @@ import argparse
 import torch
 
 from lgcnhs_tpu_torch.config import DATASETS, MODEL_NAMES, Config, load_config
+from lgcnhs_tpu_torch.data.datasets import load_dataset
+from lgcnhs_tpu_torch.data.graph import build_graph
+from lgcnhs_tpu_torch.runtime.logging import get_logger
 
 
 def base_parser(description: str) -> argparse.ArgumentParser:
@@ -62,6 +70,7 @@ def base_parser(description: str) -> argparse.ArgumentParser:
         default="cuda",
         help="run on the CUDA card (default; raises without one) or on the CPU",
     )
+    p.add_argument("--no-cache", action="store_true", help="ignore cached artifacts")
     return p
 
 
@@ -99,3 +108,22 @@ def config_from_args(args: argparse.Namespace) -> Config:
     )
     cfg.ensure_dirs()
     return cfg
+
+
+def load_pipeline(cfg: Config):
+    """Dataset -> (graph arrays, user features, item features, splits), with
+    the JAX package's shape log line (reference ``main.py:47-58``)."""
+    log = get_logger("lgcnhs", cfg.log_path)
+    splits, user_features, item_features = load_dataset(cfg)
+    graph = build_graph(splits)
+    log.info(
+        "users: %d, items: %d | train %s val %s test %s | user_features %s item_features %s",
+        graph.n_users,
+        graph.n_items,
+        graph.train.n_edges,
+        graph.val.n_edges,
+        graph.test.n_edges,
+        user_features.shape,
+        item_features.shape,
+    )
+    return graph, user_features, item_features, splits

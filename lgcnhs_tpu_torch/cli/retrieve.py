@@ -22,9 +22,8 @@ import os
 import numpy as np
 import torch
 
-from lgcnhs_tpu_torch.cli.common import base_parser, config_from_args
-from lgcnhs_tpu_torch.data.datasets import load_dataset
-from lgcnhs_tpu_torch.data.graph import build_graph, pos_bool_matrix
+from lgcnhs_tpu_torch.cli.common import base_parser, config_from_args, load_pipeline
+from lgcnhs_tpu_torch.data.graph import pos_bool_matrix
 from lgcnhs_tpu_torch.models.fusion import serve_fused
 from lgcnhs_tpu_torch.models.recommenders import get_or_train_params
 from lgcnhs_tpu_torch.ops.topk import retrieve_topk
@@ -44,8 +43,7 @@ def main(argv=None) -> np.ndarray:
     cfg = config_from_args(args)
     log = get_logger("lgcnhs", cfg.log_path)
 
-    splits, user_features, item_features = load_dataset(cfg)
-    graph = build_graph(splits)
+    graph, user_features, item_features, _ = load_pipeline(cfg)
     params = get_or_train_params(graph, cfg, device, user_features, item_features)
 
     if cfg.model in ("SpreadLightGCN", "SpreadLightGCNOpti"):

@@ -1,1 +1,1 @@
-"""LightGCN tables, LGCNHS fused serving and checkpoint dispatch."""
+"""LightGCN tables, the spread and fusion models, and model dispatch."""

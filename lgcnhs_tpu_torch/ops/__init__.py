@@ -1,1 +1,1 @@
-"""Diffusion operators, top-k ranking and the CUDA kernels."""
+"""Diffusion operators, ranking, metrics, propagation and the CUDA kernels."""

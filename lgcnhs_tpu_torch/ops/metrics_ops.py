@@ -1,14 +1,15 @@
 """Vectorized metric kernels: precision, recall, NDCG, Hamming diversity and
 Sorensen internal similarity.
 
-Port of the dense metrics of ``lgcnhs_tpu/ops/metrics_ops.py`` (``:26-157``)
-that the trainer's validation uses. The reference loops over users and item
+Port of the dense metrics of ``lgcnhs_tpu/ops/metrics_ops.py`` (``:26-211``)
+that the trainer's validation and ``eval/metrics`` use. The reference loops over users and item
 pairs (``metrics/accurate.py``, ``metrics/diversity.py``); here
 - precision/recall/NDCG are one gather (the hit matrix) and masked means;
 - Hamming's pairwise-overlap double sum is ||c||^2 of the item
   recommendation-count vector c, O(U k) instead of O(U^2 k);
 - internal similarity is the bilinear form b_u^T S b_u over the
-  degree-normalized co-occurrence matrix S.
+  degree-normalized co-occurrence matrix S (or the gathered pair block of a
+  precomputed S, or per-list co-occurrence blocks with no S at all).
 Everything is computed in f32, as the JAX functions do.
 """
 from __future__ import annotations
@@ -79,7 +80,8 @@ def similarity_matrix(interaction: torch.Tensor, item_deg: torch.Tensor) -> torc
     cooc = A.T @ A
     deg = item_deg.to(torch.float32)
     inv_sqrt = torch.where(deg > 0, torch.rsqrt(deg), torch.zeros_like(deg))
-    return cooc * inv_sqrt[:, None] * inv_sqrt[None, :]
+    # in place: no second (I, I) temporary (9.8 GB in f32 at 49,410 items)
+    return cooc.mul_(inv_sqrt[:, None]).mul_(inv_sqrt[None, :])
 
 
 def internal_similarity(
@@ -97,3 +99,56 @@ def internal_similarity(
     quad = torch.sum((B @ S) * B)
     diag_term = torch.sum(B * torch.diagonal(S)[None, :])
     return (quad - diag_term) / (float(U) * k * (k - 1))
+
+
+def internal_similarity_from_matrix(rec: torch.Tensor, S: torch.Tensor) -> torch.Tensor:
+    """I@k from a precomputed ``similarity_matrix`` S: the (U, k, k) pair
+    block of S gathered, its diagonal subtracted; the cheap form when S is
+    reused across many lists."""
+    U, k = rec.shape
+    r = rec.long()
+    pair = S[r[:, :, None], r[:, None, :]]  # (U, k, k)
+    diag = S[r, r]  # (U, k): the i == j terms
+    return (torch.sum(pair) - torch.sum(diag)) / (float(U) * k * (k - 1))
+
+
+def internal_similarity_direct(
+    rec: torch.Tensor,  # (U, k)
+    interaction: torch.Tensor,  # (U_i, I) 0/1 train+val
+    item_deg: torch.Tensor,  # (I,)
+    chunk: int = 128,
+) -> torch.Tensor:
+    """I@k with no (I, I) matrix: for each chunk of users, the k interaction
+    columns of each list give its (k, k) co-occurrence block directly
+    (``metrics/diversity.py:96-107``), degree-normalized, diagonal
+    subtracted. Peak memory O(U_i chunk k); zero-degree items carry inverse
+    square root 0, so their pairs are skipped as in the reference."""
+    U, k = rec.shape
+    A = interaction.to(torch.float32)
+    deg = item_deg.to(torch.float32)
+    inv_sqrt = torch.where(deg > 0, torch.rsqrt(deg), torch.zeros_like(deg))
+    r = rec.long()
+    total = torch.zeros((), dtype=torch.float32, device=rec.device)
+    for c0 in range(0, U, chunk):
+        rc = r[c0:c0 + chunk]  # (C, k)
+        sub = A[:, rc]  # (U_i, C, k)
+        cooc = torch.einsum("uci,ucj->cij", sub, sub)
+        inv = inv_sqrt[rc]
+        pair = cooc * inv[:, :, None] * inv[:, None, :]
+        total = total + torch.sum(torch.sum(pair, dim=(1, 2))
+                                  - torch.diagonal(pair, dim1=1, dim2=2).sum(dim=1))
+    return total / (float(U) * k * (k - 1))
+
+
+def novelty_avg_degree(rec: torch.Tensor, item_deg: torch.Tensor) -> torch.Tensor:
+    """Novelty: the mean train degree of the recommended items
+    (``waste/metrics/novelty.py:11-48``; lower is more novel)."""
+    U, k = rec.shape
+    return torch.sum(item_deg.to(torch.float32)[rec.long()]) / (U * k)
+
+
+def all_accuracy_metrics(rec, pos, pos_counts, present):
+    """(P@k, R@k, NDCG@k) from one hit matrix."""
+    hits = hit_matrix(rec, pos)
+    p, r = precision_recall_from_hits(hits, pos_counts, present)
+    return p, r, ndcg_from_hits(hits, present)

@@ -1,8 +1,13 @@
 """Ranking / top-k retrieval.
 
-Port of the GCN-flavor ranking of ``lgcnhs_tpu/ops/topk.py``: seen user-item
-scores are set to exactly -(1 << 10) (the reference's finite sentinel,
-``model/LightGCN/evaluation.py:41-52``) and the top k are taken.
+Port of ``lgcnhs_tpu/ops/topk.py``, both ranking flavors:
+
+1. GCN flavor: seen user-item scores are set to exactly -(1 << 10) (the
+   reference's finite sentinel, ``model/LightGCN/evaluation.py:41-52``) and
+   the top k are taken (``masked_topk``, ``retrieve_topk``).
+2. Spread flavor: ties to the HIGHER index, seen items behind unseen ones
+   (``rank_exclude_seen[_topk]``, ``model/SpreadMethod/recommend.py:35-50``).
+   A plain library op, as in the JAX package: no hand kernel.
 
 Order (``select_topk``, shared by every plain path and kernel twin): value
 descending in IEEE total order, so +0.0 ranks above -0.0 as in XLA's
@@ -69,3 +74,55 @@ def retrieve_topk(
     from lgcnhs_tpu_torch.ops.cuda.retrieval import fused_topk_retrieval
 
     return fused_topk_retrieval(user_emb, item_emb, seen, k)[0]
+
+
+def rank_exclude_seen(
+    resource: torch.Tensor, seen: torch.Tensor, k: int, filter_seen: bool = True
+) -> torch.Tensor:
+    """Spread-flavor ranking by two full-width stable sorts (the JAX
+    ``rank_exclude_seen``, reference ``model/SpreadMethod/recommend.py:35-50``):
+    value descending, ties to the HIGHER index (``np.argsort(x)[::-1]`` with
+    a stable sort; +0 and -0 tie, as in a float compare), seen items stably
+    pushed behind unseen ones, the first k taken. A user with fewer than k
+    unseen items gets its best seen items at the tail. ``filter_seen=False``
+    is the ProbS-on-movielens quirk that skips the seen filter. (U, k) int32."""
+    order = torch.sort(resource, dim=1, stable=True)[1].flip(1)
+    if not filter_seen:
+        return order[:, :k].to(torch.int32)
+    seen_in_order = torch.gather(seen, 1, order).to(torch.int32)
+    perm = torch.sort(seen_in_order, dim=1, stable=True)[1]
+    return torch.gather(order, 1, perm)[:, :k].to(torch.int32)
+
+
+def rank_exclude_seen_topk(
+    resource: torch.Tensor, seen: torch.Tensor, k: int, filter_seen: bool = True
+) -> torch.Tensor:
+    """``rank_exclude_seen`` as two width-I selections, the JAX
+    ``rank_exclude_seen_topk`` that ``fused_recommend`` and the spread
+    models rank with: ``select_topk`` (ties to the lowest index, +0 above
+    -0, as XLA's ``top_k``) on the item-reversed row, mapped back by
+    ``I - 1 - idx``, so ties go to the highest index. Seen entries are
+    -inf in the unseen selection and unseen ones -inf in the seen
+    selection; slots past a user's unseen count read its best seen items
+    (the < k backfill). Unseen scores must be finite. k > I is clamped to
+    I. (U, k) int32."""
+    I = resource.shape[1]
+    k = min(k, I)
+    rev = resource.flip(1)
+
+    def topk_rev(scores_rev):
+        return (I - 1) - select_topk(scores_rev, k)[1]
+
+    if not filter_seen:
+        return topk_rev(rev)
+    seen_rev = seen.flip(1)
+    neg_inf = torch.tensor(-torch.inf, dtype=resource.dtype, device=resource.device)
+    unseen_idx = topk_rev(torch.where(seen_rev, neg_inf, rev))
+    seen_idx = topk_rev(torch.where(seen_rev, rev, neg_inf))
+    del rev, seen_rev
+    n_unseen = (~seen).sum(dim=1, keepdim=True)  # (U, 1)
+    slot = torch.arange(k, device=resource.device)[None, :]
+    from_unseen = slot < n_unseen
+    backfill_pos = torch.clamp(slot - n_unseen, 0, k - 1)
+    backfill = torch.gather(seen_idx, 1, backfill_pos)
+    return torch.where(from_unseen, unseen_idx, backfill)

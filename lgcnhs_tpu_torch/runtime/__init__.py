@@ -1,1 +1,1 @@
-"""Logging, stage timing and device resolution."""
+"""Logging, stage timing, device resolution and the artifact cache."""
