@@ -82,6 +82,20 @@ neither JAX nor ``lgcnhs_tpu``. Phases:
    its peak device memory, and the host ms of each device stage of
    SpreadLightGCNOpti's (diffusion, G, G * F, ranking, evaluation) at
    ML-1M and over 49,410 items.
+6. Large graphs on one card (``large_graph_phase``), at the JAX bench's
+   large-graph scale (50,000 x 30,000 synthetic, ~2M train edges, the prod
+   preset): (a) 300 epochs through ``dual_matmul`` with two CSR
+   evaluations (one retrieval launch a user chunk), then ``cli/main
+   --model LightGCNOpti`` on that checkpoint (``recommend_gcn``'s chunked
+   branch, each chunk's ids held against the plain chain on the card);
+   ``dual_matmul`` and a chunk's retrieval at these shapes against their
+   twins (and ``dual_matmul`` against the exact f64 sums), timed; (b) 40
+   epochs at ``compute.dtype=float32``, the COO (bucketed-ELL) route; (c)
+   the bf16-dense rung (``compute.use_pallas=false``) beside the kernel
+   route over 20 epochs, within the JAX rung test's tolerance; the ML-1M
+   stand-in forced into COO beside its dense f32 route, one seed. Launch
+   counts set to 0 before each run and read after; each run's seconds, ms
+   a step, CSR-evaluation retrieval and I@k seconds and peak memory.
 
 Prints one PASS/FAIL line per check, then (all passed) the kernel JSON line,
 the ``nvidia-smi`` name/power-limit line, and the final
@@ -129,6 +143,25 @@ BF16_ULP = 2.0 ** -7  # bf16 spacing: at most 2^-7 of a value
 # the measured gaps, far below the worst case.
 TWIN_LOSS_TOL = 1e-4
 TWIN_TABLE_TOL = 1e-3
+# phase 6, the large graphs: the JAX bench's 50k x 30k scale (bench.py:346-372)
+LARGE_USERS, LARGE_ITEMS, LARGE_INTERACTIONS = 50_000, 30_000, 2_900_000
+LARGE_EPOCHS, LARGE_EVAL_EVERY = 300, 150  # run (a): two CSR evals
+COO_EPOCHS = 40  # run (b)
+SHORT_EPOCHS = 20  # run (c), the rung beside the kernel route
+# the rung against the kernel route: the JAX rung test's tolerance
+# (tests/test_propagation_paths.py:57-95); only the incidence rounding differs
+RUNG_RTOL, RUNG_ATOL = 0.05, 5e-3
+# the COO route against the dense f32 route at ML-1M over TWIN_EPOCHS: the
+# same triples, f32 sums in another order (index_add_ in no fixed order on
+# the card)
+COO_LOSS_TOL = 1e-5
+COO_TABLE_TOL = 1e-4
+# dual_matmul on the large graph against its exact products (f64): a hub
+# item's output sums tens of thousands of bf16 products in f32, several
+# times ML-1M's longest sum, so DUAL_REL_TOL does not carry over. Measured:
+# the kernel 3.47e-5 of scale from the exact sums (the twin's f32 matmul
+# 1.3e-7); a misplaced tile is O(1).
+LARGE_DUAL_REL_TOL = 1e-4
 
 
 class Checks:
@@ -205,6 +238,343 @@ def median_ms(torch, fn, reps, warmup=1):
 def bound(nbytes, flops, peak_flops=PEAK_F32_FLOP_PER_S):
     t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / peak_flops
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
+
+
+class StepClock(logging.Handler):
+    """Host clock of cli/main's log lines: Step 2 (recommend) runs from its
+    line to Step 3's, Step 3 (evaluate) to the metric line."""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.marks = {}
+
+    def emit(self, record):
+        msg = record.getMessage()
+        for mark, found in (("step2", msg.startswith("Step2:")),
+                            ("step3", msg.startswith("Step3:")),
+                            ("end", "Test Accurate]" in msg)):
+            if found:
+                self.marks[mark] = record.created
+
+
+class TrainProbe:
+    """Times a ``train_lightgcn`` run from the inside while it is active:
+    the train step over the steady window of epochs ``first``..``last``
+    (no eval inside it; the card synchronized at its two ends), and each
+    CSR eval's chunked retrieval and I@k (host seconds, the card
+    synchronized around each call). It wraps the trainer module's names
+    and restores them on exit."""
+
+    NAMES = ("make_train_step", "make_coo_train_step", "chunked_masked_topk",
+             "internal_similarity_csr")
+
+    def __init__(self, torch, trainer, first, last):
+        self.torch, self.trainer = torch, trainer
+        self.first, self.last = first, last
+        self.step_ms = None
+        self.topk_s, self.iak_s = [], []
+
+    def _factory(self, factory):
+        def make(*a, **kw):
+            step = factory(*a, **kw)
+
+            def timed(params, epoch, *rest):
+                if epoch == self.first:
+                    self.torch.cuda.synchronize()
+                    self.t0 = time.perf_counter()
+                loss = step(params, epoch, *rest)
+                if epoch == self.last:
+                    self.torch.cuda.synchronize()
+                    self.step_ms = ((time.perf_counter() - self.t0) * 1e3
+                                    / (self.last - self.first + 1))
+                return loss
+
+            return timed
+
+        return make
+
+    def _call(self, fn, into):
+        def call(*a, **kw):
+            self.torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            self.torch.cuda.synchronize()
+            into.append(time.perf_counter() - t0)
+            return out
+
+        return call
+
+    def __enter__(self):
+        self.saved = {name: getattr(self.trainer, name) for name in self.NAMES}
+        t = self.trainer
+        t.make_train_step = self._factory(self.saved["make_train_step"])
+        t.make_coo_train_step = self._factory(self.saved["make_coo_train_step"])
+        t.chunked_masked_topk = self._call(self.saved["chunked_masked_topk"], self.topk_s)
+        t.internal_similarity_csr = self._call(self.saved["internal_similarity_csr"],
+                                               self.iak_s)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.trainer, name, fn)
+        return False
+
+
+def large_graph_phase(check, dev, smi, clock):
+    """Phase 6: the large-graph paths at the JAX bench's large-graph scale
+    (``bench.py:284-403``): ``--dataset synthetic --users 50000 --items
+    30000 --interactions 2900000``, D=64, k=100, batch 1024, the prod preset.
+    Returns the measurements the kernel report takes."""
+    import numpy as np
+    import torch
+
+    from lgcnhs_tpu_torch import config as tcfg
+    from lgcnhs_tpu_torch.cli import main as cli_main
+    from lgcnhs_tpu_torch.data.datasets import load_dataset
+    from lgcnhs_tpu_torch.data.graph import EdgeSet, build_graph, unique_edges
+    from lgcnhs_tpu_torch.ops import scalable
+    from lgcnhs_tpu_torch.ops.cuda import fusion_serve as fs
+    from lgcnhs_tpu_torch.ops.cuda import propagation as prop
+    from lgcnhs_tpu_torch.ops.cuda import retrieval as rt
+    from lgcnhs_tpu_torch.ops.topk import MASK_VALUE, masked_topk
+    from lgcnhs_tpu_torch.train import trainer
+
+    kernels = {"dual_matmul": prop.dual_matmul, "fused_topk_retrieval": rt.fused_topk_retrieval,
+               "fused_lgcnhs_serve": fs.fused_lgcnhs_serve}
+    os.makedirs(os.path.join(ROOT, "artifacts"), exist_ok=True)
+    work = tempfile.mkdtemp(prefix="chip_smoke_large_", dir=os.path.join(ROOT, "artifacts"))
+    sizes = {"synthetic_users": LARGE_USERS, "synthetic_items": LARGE_ITEMS,
+             "synthetic_interactions": LARGE_INTERACTIONS}
+    big_args = ["--dataset", "synthetic", "--env", "prod", "--users", str(LARGE_USERS),
+                "--items", str(LARGE_ITEMS), "--interactions", str(LARGE_INTERACTIONS)]
+    out = {"runs": []}
+
+    def cfg_for(dataset="synthetic", **over):
+        return tcfg.load_config(env="prod", dataset=dataset, model="LightGCNOpti", workdir=work,
+                                overrides={**(sizes if dataset == "synthetic" else {}), **over})
+
+    t0 = time.perf_counter()
+    splits, uf, itf = load_dataset(cfg_for())
+    g = build_graph(splits)
+    U, I, E = g.n_users, g.n_items, g.train.n_edges
+    data_s = time.perf_counter() - t0
+    deg_i = np.bincount(unique_edges(g.train).items, minlength=I)
+    print(f"[phase 6] large graph: {U} x {I}, {E} train edges (density {E / (U * I):.6f}), "
+          f"{g.val.n_edges} val; item degrees up to {deg_i.max()} (p99 "
+          f"{np.percentile(deg_i, 99):.1f}); data on the host in {data_s:.2f} s", flush=True)
+    n_chunks = -(-U // scalable.chunk_users(U, I, 1))  # the kernel route's chunks
+
+    def run(label, cfg, graph, feats, first, last, want, save=False):
+        """One train_lightgcn on the card: launch counts set to 0 just
+        before and read just after, checked against ``want``; its step ms,
+        CSR eval seconds and peak device memory."""
+        for fn in kernels.values():
+            fn.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with TrainProbe(torch, trainer, first, last) as probe:
+            result = trainer.train_lightgcn(graph, cfg, *feats, save_artifacts=save,
+                                            device=dev)
+            torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counted = {name: fn.launches for name, fn in kernels.items()}
+        row = {"run": label, "route": want["route"], "seconds": secs, "step_ms": probe.step_ms,
+               "examples_per_s": cfg.hparams.batch_size / probe.step_ms * 1e3,
+               "csr_eval_topk_s": probe.topk_s, "iak_s": probe.iak_s,
+               "peak_device_gb": torch.cuda.max_memory_allocated() / 1e9, "launches": counted}
+        out["runs"].append(row)
+        hist = result.history
+        print(f"[phase 6] {label}, {want['route']}: {secs:.2f} s, {probe.step_ms:.4f} ms/step "
+              f"({row['examples_per_s']:.1f} examples/s), CSR eval retrieval s {probe.topk_s}, "
+              f"I@k s {probe.iak_s}, peak device {row['peak_device_gb']:.2f} GB, launches "
+              f"{counted}; history {json.dumps(hist)} [{smi}]", flush=True)
+        wanted = {name: want.get(name, 0) for name in kernels}
+        check(f"large graph {label}, {want['route']}: launches {wanted}", counted == wanted,
+              f"{counted}")
+        check(f"large graph {label}: history finite, evals at {want['iters']}",
+              hist["iters"] == want["iters"]
+              and all(math.isfinite(v) for col in hist.values() for v in col), f"{hist}")
+        return result
+
+    # (a) the prod preset: the kernel route (int8 R through dual_matmul) with
+    # the CSR evaluation, every chunk one retrieval launch
+    evals_a = list(range(0, LARGE_EPOCHS, LARGE_EVAL_EVERY))
+    cfg_a = cfg_for(**{"hparams.epochs": LARGE_EPOCHS, "hparams.epoch_per_eval": LARGE_EVAL_EVERY})
+    check("large graph: the prod preset takes the dense side (bf16), float32 the COO side",
+          trainer.choose_propagation(U, I, E, cfg_a.compute) == "dense"
+          and trainer.choose_propagation(U, I, E, cfg_for(**{"compute.dtype": "float32"}).compute)
+          == "coo" and 4.0 * U * I > trainer.DENSIFY_BUDGET_BYTES)
+    res_a = run("(a)", cfg_a, g, (uf, itf), 1, LARGE_EVAL_EVERY - 1,
+                {"route": "kernel route + CSR eval", "iters": evals_a,
+                 "dual_matmul": 6 * LARGE_EPOCHS,
+                 "fused_topk_retrieval": len(evals_a) * n_chunks}, save=True)
+    out["dual_launches"] = out["runs"][-1]["launches"]["dual_matmul"]
+    out["chunk_launches"] = out["runs"][-1]["launches"]["fused_topk_retrieval"]
+    hist = res_a.history
+    check("large graph (a): train loss falls", hist["train_loss"][-1] < hist["train_loss"][0],
+          f"{hist['train_loss']}")
+
+    # cli/main on (a)'s checkpoint: loaded, recommend_gcn's chunked branch
+    for fn in kernels.values():
+        fn.launches = 0
+    clock.marks.clear()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    metrics = cli_main.main(["--device", dev.type, "--workdir", work, "--model", "LightGCNOpti",
+                             *big_args])
+    host_s = time.perf_counter() - t0
+    counted = {name: fn.launches for name, fn in kernels.items()}
+    marks = clock.marks
+    main_row = {"run": "cli/main LightGCNOpti, (a)'s checkpoint", "host_s": host_s,
+                "step2_s": marks["step3"] - marks["step2"],
+                "step3_s": marks["end"] - marks["step3"],
+                "peak_device_gb": torch.cuda.max_memory_allocated() / 1e9, "launches": counted}
+    out["main_row"] = main_row
+    out["chunk_launches"] += counted["fused_topk_retrieval"]
+    print(f"[phase 6] cli/main LightGCNOpti {U}x{I}: {json.dumps(metrics)} in {host_s:.2f} s "
+          f"(Step 2 recommend {main_row['step2_s']:.4f} s, Step 3 evaluate "
+          f"{main_row['step3_s']:.4f} s), peak device {main_row['peak_device_gb']:.2f} GB, "
+          f"launches {counted} [{smi}]", flush=True)
+    want = {"dual_matmul": 0, "fused_topk_retrieval": n_chunks, "fused_lgcnhs_serve": 0}
+    check(f"large graph cli/main: (a)'s checkpoint loaded, recommend_gcn chunked, one retrieval "
+          f"launch a chunk ({n_chunks})", counted == want, f"{counted}")
+    check("large graph cli/main: six finite metrics",
+          sorted(metrics) == sorted(["P", "R", "F1", "NDCG", "H", "I"])
+          and all(math.isfinite(v) for v in metrics.values()), f"{metrics}")
+
+    # every chunk's ids against the plain chain on the card
+    cfg_main = cfg_for()
+    rec = torch.from_numpy(np.load(os.path.join(
+        cfg_main.recommend_path, f"all_user_recommend_LightGCNOpti_{cfg_main.k}.npy"))).to(dev)
+    ue, ie = res_a.params
+    rowptr, cols = scalable.user_csr(U, EdgeSet(np.r_[g.train.users, g.val.users],
+                                                np.r_[g.train.items, g.val.items]))
+    C = scalable.chunk_users(U, I, 1)
+    cols_t = torch.from_numpy(cols.astype(np.int64)).to(dev)
+    worst, identical = (1.0, 0.0), 0
+    for s in range(0, U, C):
+        e = min(s + C, U)
+        seen = scalable.csr_rows_mask(rowptr, cols_t, s, e, I)
+        plain = masked_topk(ue[s:e] @ ie.T, seen, cfg_main.k)
+        if torch.equal(plain, rec[s:e]):
+            identical += 1
+            continue
+        s64 = ue[s:e].double() @ ie.double().T
+        ref = torch.where(seen, torch.full_like(s64, MASK_VALUE), s64)
+        agreement, gap = tie_equivalence(torch, plain, rec[s:e], ref)
+        worst = (min(worst[0], agreement), max(worst[1], gap))
+        del s64, ref
+    check(f"large graph cli/main: every chunk's ids identical to the plain chain on the card, "
+          f"or tie-equivalent ({identical} of {n_chunks} identical)",
+          worst[0] >= AGREEMENT_MIN and worst[1] <= GAP_MAX,
+          f"worst agreement {worst[0]:.6f}, max relative gap {worst[1]:.3e}")
+
+    # the kernels at this path's shapes against their twins, timed
+    te = unique_edges(g.train)
+    tr_rowptr, tr_cols = scalable.user_csr(U, te)
+    seen0 = scalable.csr_rows_mask(tr_rowptr, torch.from_numpy(tr_cols.astype(np.int64)).to(dev),
+                                   0, C, I)  # the first chunk of a CSR eval
+    chunk_in = (ue[:C].contiguous(), ie, seen0, cfg_main.k)
+    got, want_ = rt.fused_topk_retrieval(*chunk_in), rt.fused_topk_retrieval_ref(*chunk_in)
+    out["chunk"] = {
+        "shape": [C, I, ue.shape[1], cfg_main.k],
+        "max_abs_err": (got[1] - want_[1]).abs().max().item(),
+        "ms": median_ms(torch, lambda: rt.fused_topk_retrieval(*chunk_in), 10),
+        "plain_ms": median_ms(torch, lambda: rt.fused_topk_retrieval_ref(*chunk_in), 10),
+        "library_ms": None,
+        "bound": bound(4 * (C + I) * ue.shape[1] + C * I + 8 * C * cfg_main.k,
+                       2 * C * I * ue.shape[1]),
+    }
+    del seen0, got, want_
+    R8, du, di = trainer.device_binary_factors(U, I, te, dev)
+    R8p = prop.pad_for_dual(R8)
+    X = (di[:, None] * ie).to(torch.bfloat16)
+    Y = (du[:, None] * ue).to(torch.bfloat16)
+    got = prop.dual_matmul(R8p, X, Y)
+    want_ = prop.dual_matmul_ref(R8, X, Y)
+    # the exact products summed in f64 over the edge list
+    eu_t = torch.from_numpy(te.users.astype(np.int64)).to(dev)
+    ei_t = torch.from_numpy(te.items.astype(np.int64)).to(dev)
+    ref64 = (torch.zeros((U, X.shape[1]), dtype=torch.float64, device=dev)
+             .index_add_(0, eu_t, X.double()[ei_t]),
+             torch.zeros((I, Y.shape[1]), dtype=torch.float64, device=dev)
+             .index_add_(0, ei_t, Y.double()[eu_t]))
+
+    def rel_err(outs):
+        return max((a.double() - r).abs().max().item() / r.abs().max().item()
+                   for a, r in zip(outs, ref64))
+
+    nnz = te.n_edges
+    out["dual"] = {
+        "shape": [U, I, ue.shape[1], nnz],
+        "max_rel_err": rel_err(got), "twin_max_rel_err": rel_err(want_),
+        "max_abs_err": max((a - b).abs().max().item() for a, b in zip(got, want_)),
+        "ms": median_ms(torch, lambda: prop.dual_matmul(R8p, X, Y), 10),
+        "plain_ms": median_ms(torch, lambda: prop.dual_matmul_ref(R8, X, Y), 3),
+        "bound": bound(U * I + 2 * (I + U) * ue.shape[1] + 4 * (U + I) * ue.shape[1],
+                       4 * nnz * ue.shape[1], PEAK_BF16_FLOP_PER_S),
+    }
+    del ref64, eu_t, ei_t
+    check(f"large graph: dual_matmul at {U}x{I}x64 within {LARGE_DUAL_REL_TOL:g} of each "
+          "output's scale of the exact (f64) products",
+          out["dual"]["max_rel_err"] <= LARGE_DUAL_REL_TOL,
+          f"kernel {out['dual']['max_rel_err']:.3e}, twin {out['dual']['twin_max_rel_err']:.3e}")
+    print(f"[phase 6] kernels at this path's shapes: fused_topk_retrieval chunk "
+          f"{json.dumps(out['chunk'])}; dual_matmul {json.dumps(out['dual'])} [{smi}]",
+          flush=True)
+    del R8, R8p, X, Y, got, want_, res_a, rec
+    torch.cuda.empty_cache()
+
+    # (b) compute.dtype=float32: the COO route (bucketed ELL), CSR eval
+    run("(b)", cfg_for(**{"compute.dtype": "float32", "hparams.epochs": COO_EPOCHS}), g,
+        (uf, itf), 1, COO_EPOCHS - 1,
+        {"route": "COO bucketed + CSR eval", "iters": [0], "fused_topk_retrieval": n_chunks})
+    torch.cuda.empty_cache()
+
+    # (c) the bf16-dense rung (use_pallas=false) beside the kernel route, the
+    # same seed and triple stream: only the incidence rounding differs
+    short = {"hparams.epochs": SHORT_EPOCHS}
+    kern = run("(c) beside the rung", cfg_for(**short), g, (uf, itf), 1, SHORT_EPOCHS - 1,
+               {"route": "kernel route + CSR eval", "iters": [0],
+                "dual_matmul": 6 * SHORT_EPOCHS, "fused_topk_retrieval": n_chunks})
+    rung = run("(c) rung", cfg_for(**short, **{"compute.use_pallas": False}), g, (uf, itf), 1,
+               SHORT_EPOCHS - 1, {"route": "bf16-dense rung + CSR eval", "iters": [0],
+                                  "fused_topk_retrieval": n_chunks})
+    worst = max(((a - b).abs() - RUNG_ATOL - RUNG_RTOL * b.abs()).max().item()
+                for a, b in zip(rung.params, kern.params))
+    gap = max((a - b).abs().max().item() for a, b in zip(rung.params, kern.params))
+    check(f"large graph (c): the rung's tables within rtol {RUNG_RTOL:g}, atol {RUNG_ATOL:g} of "
+          f"the kernel route's after {SHORT_EPOCHS} epochs", worst <= 0.0,
+          f"max |gap| {gap:.3e}")
+    del kern, rung
+    torch.cuda.empty_cache()
+
+    # the COO route against the dense f32 route at ML-1M, one seed
+    over = {"compute.dtype": "float32", "hparams.epochs": TWIN_EPOCHS,
+            "hparams.epoch_per_eval": 10}
+    splits_m, ufm, ifm = load_dataset(cfg_for("movielens1m", **over))
+    gm = build_graph(splits_m)
+    dense_m = trainer.train_lightgcn(gm, cfg_for("movielens1m", **over), ufm, ifm,
+                                     save_artifacts=False, device=dev)
+    coo_m = trainer.train_lightgcn(gm, cfg_for("movielens1m", **over,
+                                               **{"compute.dense_threshold": 1.0}),
+                                   ufm, ifm, save_artifacts=False, device=dev)
+    hd, hc = dense_m.history, coo_m.history
+    loss_gap = max(abs(a - b) for col in ("train_loss", "val_loss")
+                   for a, b in zip(hd[col], hc[col]))
+    table_gap = max((a - b).abs().max().item() for a, b in zip(dense_m.params, coo_m.params))
+    scale = max(t.abs().max().item() for t in dense_m.params)
+    out["coo_vs_dense"] = {"loss_gap": loss_gap, "table_gap": table_gap, "table_scale": scale}
+    print(f"[phase 6] ML-1M COO vs dense f32, {TWIN_EPOCHS} epochs: dense {json.dumps(hd)}, "
+          f"COO {json.dumps(hc)}; max loss gap {loss_gap:.3e}, max table gap {table_gap:.3e} "
+          f"(table scale {scale:.3e})", flush=True)
+    check(f"ML-1M COO route tracks the dense f32 route over {TWIN_EPOCHS} epochs: losses",
+          hd["iters"] == hc["iters"] and loss_gap <= COO_LOSS_TOL,
+          f"max gap {loss_gap:.3e}, tolerance {COO_LOSS_TOL:g}")
+    check(f"ML-1M COO route tracks the dense f32 route over {TWIN_EPOCHS} epochs: tables",
+          table_gap <= COO_TABLE_TOL, f"max gap {table_gap:.3e}, tolerance {COO_TABLE_TOL:g}")
+    shutil.rmtree(work, ignore_errors=True)
+    return out
 
 
 def main() -> int:
@@ -759,22 +1129,6 @@ def main() -> int:
                     init_lightgcn(torch.Generator().manual_seed(SEED), graph.n_users,
                                   graph.n_items, 64))
 
-    class StepClock(logging.Handler):
-        """Host clock of cli/main's log lines: Step 2 (recommend) runs from
-        its line to Step 3's, Step 3 (evaluate) to the metric line."""
-
-        def __init__(self):
-            super().__init__(logging.INFO)
-            self.marks = {}
-
-        def emit(self, record):
-            msg = record.getMessage()
-            for mark, found in (("step2", msg.startswith("Step2:")),
-                                ("step3", msg.startswith("Step3:")),
-                                ("end", "Test Accurate]" in msg)):
-                if found:
-                    self.marks[mark] = record.created
-
     clock = StepClock()
     logging.getLogger("lgcnhs").addHandler(clock)
     main_rows, main_metrics = [], {}
@@ -1263,6 +1617,27 @@ def main() -> int:
     for key in (("SpreadLightGCNOpti", "movielens1m", K_SLICE),
                 ("SpreadLightGCNOpti", "synthetic", K_SLICE)):
         check.guard(f"cli/main stages {key[1]}", main_breakdown, key)
+
+    # -- 6. large graphs on one card -------------------------------------
+    print(f"[phase 6] large graphs: {LARGE_USERS} x {LARGE_ITEMS} on {smi}", flush=True)
+    large = check.guard("large graphs", large_graph_phase, check, dev, smi, clock)
+    if large:
+        c, d = large["chunk"], large["dual"]
+        report.append({
+            "name": "fused_topk_retrieval@chunked_masked_topk", "route": "cuda",
+            "source": "lgcnhs_tpu_torch/ops/cuda/retrieval.cu",
+            "replaces": "lgcnhs_tpu/ops/pallas/retrieval.py:110",
+            "call_site": "lgcnhs_tpu/ops/scalable.py:151",
+            "launches": large["chunk_launches"], "max_abs_err": c["max_abs_err"], "ms": c["ms"],
+            "plain_ms": c["plain_ms"], "bound_ms": c["bound"][0], "bound_by": c["bound"][1],
+            "library_ms": None, "shape": c["shape"],
+        })
+        dual_row.update(large_graph_launches=large["dual_launches"], large_graph_ms=d["ms"],
+                        large_graph_plain_ms=d["plain_ms"], large_graph_bound_ms=d["bound"][0],
+                        large_graph_bound_by=d["bound"][1],
+                        large_graph_max_rel_err=d["max_rel_err"], large_graph_shape=d["shape"])
+        print(f"[phase 6] rows {json.dumps(large['runs'] + [large['main_row']])}", flush=True)
+        print(f"[phase 6] COO vs dense at ML-1M {json.dumps(large['coo_vs_dense'])}", flush=True)
 
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
     if check.failures:

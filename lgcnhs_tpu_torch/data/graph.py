@@ -1,15 +1,16 @@
-"""Graph arrays, in numpy.
+"""Graph arrays, in numpy, and the bf16 incidence built on the device.
 
-Port of ``lgcnhs_tpu/data/graph.py`` (all but the bf16 device incidence of
-the large-graph rung): interactions stay as flat (user, item) index arrays,
-and the dense U x I incidence is built once, vectorized (reference
-``utils/trans.py:13-116``).
+Port of ``lgcnhs_tpu/data/graph.py``: interactions stay as flat (user,
+item) index arrays, and the dense U x I incidence is built once, vectorized
+(reference ``utils/trans.py:13-116``); the large-graph rung's bf16
+incidence is set on the device from the edges (``device_bf16_incidence``).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 
 import numpy as np
+import torch
 
 from lgcnhs_tpu_torch.data.synthetic import Columns
 
@@ -140,3 +141,29 @@ def binary_incidence_factors(n_users: int, n_items: int, es: EdgeSet):
     incidence is what the dual kernel streams (``ops/cuda/propagation``)."""
     R, inv_su, inv_si = _inv_sqrt_degrees(n_users, n_items, es)
     return R.astype(np.int8), inv_su.astype(np.float32), inv_si.astype(np.float32)
+
+
+def device_bf16_incidence(n_users: int, n_items: int, es: EdgeSet, device) -> torch.Tensor:
+    """R_hat as a bf16 dense (U, I) incidence built on ``device``: the JAX
+    ``device_bf16_incidence`` (``lgcnhs_tpu/data/graph.py:175-198``), the
+    bf16-dense training rung's operand. Binary degrees (duplicate edges
+    collapse, as in ``normalized_bipartite``), their inverse square roots
+    taken in f64 and rounded to f32 as JAX's, each edge's value their f32
+    product rounded to bf16. The values are set from the deduplicated edge
+    list into a zeroed bf16 matrix: no (U, I) host array and no (U, I)
+    f32/f64 intermediate anywhere."""
+    ded = unique_edges(es)
+    users = torch.from_numpy(ded.users.astype(np.int64)).to(device)
+    items = torch.from_numpy(ded.items.astype(np.int64)).to(device)
+    R = torch.zeros((n_users, n_items), dtype=torch.bfloat16, device=device)
+    R[users, items] = (degree_inv_sqrt(users, n_users)[users]
+                       * degree_inv_sqrt(items, n_items)[items]).to(torch.bfloat16)
+    return R
+
+
+def degree_inv_sqrt(ids: torch.Tensor, n: int) -> torch.Tensor:
+    """(n,) d^-1/2 of each node, d its count in the endpoint list ``ids``:
+    taken in f64 and rounded to f32, 0 for degree 0 (gcn_norm masks the
+    inf)."""
+    d = torch.bincount(ids, minlength=n).double()
+    return torch.where(d > 0, 1.0 / torch.sqrt(d.clamp_min(1.0)), 0.0).float()

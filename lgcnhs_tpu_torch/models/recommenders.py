@@ -3,9 +3,7 @@ every model family.
 
 Port of ``lgcnhs_tpu/models/recommenders.py`` (reference per-model
 ``recommend.py`` entry points and ``model/LightGCN/recommend.py:148-154``),
-single device. ``recommend_gcn`` has no chunked-CSR branch past 4 GB: the
-JAX package needs it for the TPU's memory, and the port's retrieval kernel
-serves any catalog with the same ids (ROADMAP section 3).
+single device.
 """
 from __future__ import annotations
 
@@ -16,12 +14,14 @@ import numpy as np
 import torch
 
 from lgcnhs_tpu_torch.config import Config
-from lgcnhs_tpu_torch.data.graph import InteractionGraph, pos_bool_matrix
+from lgcnhs_tpu_torch.data.graph import EdgeSet, InteractionGraph, pos_bool_matrix
 from lgcnhs_tpu_torch.models.fusion import recommend_fused
 from lgcnhs_tpu_torch.models.lightgcn import LightGCNParams
 from lgcnhs_tpu_torch.models.spread import SPREAD_METHODS, recommend_spread_method
+from lgcnhs_tpu_torch.ops.scalable import chunked_masked_topk, user_csr
 from lgcnhs_tpu_torch.ops.topk import retrieve_topk
 from lgcnhs_tpu_torch.runtime.logging import get_logger, stage_timer
+from lgcnhs_tpu_torch.train import trainer
 from lgcnhs_tpu_torch.train.trainer import load_checkpoint, train_lightgcn
 
 
@@ -64,12 +64,21 @@ def recommend_gcn(graph: InteractionGraph, cfg: Config, params: LightGCNParams) 
     train AND val positives masked to -1024, top-k
     (``model/LightGCN/recommend.py:68-125``), through
     ``ops.topk.retrieve_topk`` on the tables' device (the fused retrieval
-    kernel on CUDA for f32 tables)."""
+    kernel on CUDA for f32 tables). When the (U, I) f32 scores would pass
+    the trainer's 4 GB ``DENSIFY_BUDGET_BYTES`` (the JAX branch's 4e9),
+    retrieval runs in user chunks with seen masks from a CSR of train+val
+    (``ops/scalable.chunked_masked_topk``): the same ids, no (U, I) array."""
     if tuple(cfg.compute.mesh_shape) != (1, 1):
         raise NotImplementedError(
             "the item-sharded retrieval (compute.mesh_shape) is not ported to "
             "lgcnhs_tpu_torch yet (ROADMAP queue 1 item 7)"
         )
+    if 4.0 * graph.n_users * graph.n_items > trainer.DENSIFY_BUDGET_BYTES:
+        seen_edges = EdgeSet(np.concatenate([graph.train.users, graph.val.users]),
+                             np.concatenate([graph.train.items, graph.val.items]))
+        rowptr, cols = user_csr(graph.n_users, seen_edges)
+        return chunked_masked_topk(params.user_emb, params.item_emb, rowptr, cols,
+                                   cfg.k).cpu().numpy()
     seen = torch.from_numpy(
         pos_bool_matrix(graph.n_users, graph.n_items, graph.train, graph.val)
     ).to(params.user_emb.device)

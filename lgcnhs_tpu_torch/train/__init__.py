@@ -1,1 +1,1 @@
-"""Checkpoint IO (training is not ported yet)."""
+"""LightGCN[Opti] training and its checkpoint IO."""

@@ -1,6 +1,6 @@
 """LightGCN / LightGCNOpti training, and the trainer's checkpoint IO.
 
-Port of the single-device dense branch of ``lgcnhs_tpu/train/trainer.py``
+Port of the single-device branches of ``lgcnhs_tpu/train/trainer.py``
 (reference ``model/LightGCN/train.py:62-223``), with its semantics:
 
 - one "epoch" = ONE minibatch step of ``batch_size`` BPR triples sampled
@@ -15,21 +15,37 @@ Port of the single-device dense branch of ``lgcnhs_tpu/train/trainer.py``
   final tables as an npz checkpoint the JAX trainer's loader reads too.
 
 The JAX step is one jitted XLA program; here a step is eager PyTorch, one
-Python call per epoch. Propagation route, as JAX's: on CUDA with
-``compute.use_pallas`` (read as "use the hand-written kernels"), the
-bfloat16 preset and the kernel's guard, the int8 binary incidence trains
-through the ``dual_matmul`` kernel (``ops/cuda/propagation``); everywhere
-else the plain dense ``ops/propagation`` route runs, as JAX off the TPU.
+Python call per epoch. Training routes, chosen as JAX chooses
+(``choose_propagation`` and the eval layout):
+
+- dense: the normalized (U, I) incidence through ``ops/propagation``;
+- the kernel route: on CUDA with ``compute.use_pallas`` (read as "use the
+  hand-written kernels"), the bfloat16 preset and the kernel's guard, the
+  int8 binary incidence through the ``dual_matmul`` kernel
+  (``ops/cuda/propagation``), at any catalog that takes the dense side
+  (JAX's TPU kernel also needs its VMEM guard, ``fits_vmem_binary``; past
+  it JAX takes the rung);
+- the bf16-dense rung: a bf16 incidence built on the device
+  (``data/graph.device_bf16_incidence``) where the f32 one would pass
+  ``HOST_INCIDENCE_BUILD_BYTES``;
+- COO: past the 4 GB incidence budget or below ``compute.dense_threshold``,
+  the bucketed-ELL layout with its self-adjoint backward
+  (``ops/propagation.lightgcn_propagate_bucketed``).
+
+Where the f32 (U, I) eval arrays would pass ``DENSIFY_BUDGET_BYTES`` (and on
+every COO run), nothing but the train incidence is O(U*I): negatives are
+rejected against CSR keys, the val loss runs the COO propagation, and
+evaluation ranks in user chunks with CSR masks (``ops/scalable``).
 
 RNG: torch cannot reproduce ``jax.random``. Each epoch draws from its own
 generator seeded from (seed, epoch) (``epoch_seed``), the counterpart of
 ``fold_in(key, e)``; the val draw at eval epoch e uses (seed, epochs + e).
-The stream does not depend on where a run stopped.
+The stream does not depend on where a run stopped, and the CSR samplers
+draw the dense samplers' triples.
 
 Not ported yet, each raising with its ROADMAP pointer: the mesh branch
-(queue 1 item 11), COO propagation and the bf16-dense rung (item 8), and
-orbax mid-train resume (item 10). ``--scan-chunk`` has no counterpart
-without jit.
+(queue 1 item 7) and orbax mid-train resume (item 6). ``--scan-chunk`` has
+no counterpart without jit.
 """
 from __future__ import annotations
 
@@ -45,6 +61,8 @@ from lgcnhs_tpu_torch.config import Config
 from lgcnhs_tpu_torch.data.graph import (
     EdgeSet,
     InteractionGraph,
+    degree_inv_sqrt,
+    device_bf16_incidence,
     interaction_matrix,
     item_degrees,
     normalized_bipartite,
@@ -69,7 +87,22 @@ from lgcnhs_tpu_torch.ops.cuda.propagation import (
     lightgcn_propagate_dual_binary,
     pad_for_dual,
 )
-from lgcnhs_tpu_torch.ops.propagation import lightgcn_propagate
+from lgcnhs_tpu_torch.ops.propagation import (
+    build_bucketed_incidence,
+    edge_gcn_norm,
+    lightgcn_propagate,
+    lightgcn_propagate_bucketed,
+    lightgcn_propagate_coo,
+)
+from lgcnhs_tpu_torch.ops.scalable import (
+    chunked_masked_topk,
+    csr_keys,
+    hits_csr,
+    internal_similarity_csr,
+    sample_bpr_batch_csr,
+    sample_negatives_for_edges_csr,
+    user_csr,
+)
 from lgcnhs_tpu_torch.ops.topk import masked_topk
 from lgcnhs_tpu_torch.runtime.device import resolve_device
 from lgcnhs_tpu_torch.runtime.logging import get_logger, stage_timer
@@ -115,6 +148,16 @@ def epoch_generator(seed: int, epoch: int, device: torch.device) -> torch.Genera
     return g
 
 
+def _bpr_of_finals(params, u_final, i_final, users, pos_items, neg_items, epsilon):
+    """BPR of one batch from the propagated tables and the layer-0 rows."""
+    return bpr_loss(
+        u_final[users], params.user_emb[users],
+        i_final[pos_items], params.item_emb[pos_items],
+        i_final[neg_items], params.item_emb[neg_items],
+        epsilon,
+    )
+
+
 def _loss_fn(params, R_hat, users, pos_items, neg_items, epsilon, n_layers,
              bf16_matmul=False, use_kernel=False):
     """BPR loss of one batch over the full-graph forward. ``use_kernel``
@@ -144,25 +187,22 @@ def _loss_fn(params, R_hat, users, pos_items, neg_items, epsilon, n_layers,
         u_final, i_final = lightgcn_propagate(
             params.user_emb, params.item_emb, R_hat, n_layers, bf16_matmul
         )
-    return bpr_loss(
-        u_final[users], params.user_emb[users],
-        i_final[pos_items], params.item_emb[pos_items],
-        i_final[neg_items], params.item_emb[neg_items],
-        epsilon,
-    )
+    return _bpr_of_finals(params, u_final, i_final, users, pos_items, neg_items, epsilon)
 
 
 #: Device-memory budget of a dense (U, I) incidence / f32 eval-array set,
-#: the JAX trainer's 4 GB.
+#: the JAX trainer's 4 GB. Tests shrink it to pin the routes.
 DENSIFY_BUDGET_BYTES = 4e9
-#: above this f32-incidence size the JAX trainer takes its bf16-dense rung.
+#: above this f32-incidence size the bf16 preset trains on the bf16-dense
+#: rung, its incidence built on the device (``device_bf16_incidence``).
 HOST_INCIDENCE_BUILD_BYTES = 2e9
 
 
 def choose_propagation(n_users: int, n_items: int, n_edges: int, compute) -> str:
     """"dense" or "coo", the single-device rule of the JAX trainer: COO when
     the dense incidence (2 bytes an entry under bfloat16, else 4) would
-    exceed 4 GB or its density is below ``compute.dense_threshold``."""
+    exceed ``DENSIFY_BUDGET_BYTES`` or its density is below
+    ``compute.dense_threshold``."""
     entry_bytes = 2.0 if getattr(compute, "dtype", "") == "bfloat16" else 4.0
     density = n_edges / max(1.0, float(n_users) * n_items)
     if entry_bytes * n_users * n_items > DENSIFY_BUDGET_BYTES or density < compute.dense_threshold:
@@ -170,23 +210,23 @@ def choose_propagation(n_users: int, n_items: int, n_edges: int, compute) -> str
     return "dense"
 
 
-def make_train_step(optimizer, hp, n_items: int, bf16_matmul: bool = False,
-                    use_kernel: bool = False, neg_hi: Optional[int] = None):
+def uses_kernels(compute, device: torch.device) -> bool:
+    """Whether training may take the hand-written kernels: ``use_pallas``
+    on a CUDA device (off CUDA every route is plain PyTorch, as JAX off the
+    TPU)."""
+    return bool(compute.use_pallas) and device.type == "cuda"
+
+
+def _make_step(optimizer, hp, sample, loss_of):
     """One epoch: sample -> forward -> BPR -> Adam update with the epoch's
-    lr. ``neg_hi`` bounds the negative candidates (``n_items`` by default;
-    ``hparams.neg_range='reference'`` passes the split-bounded range).
-    Returns ``train_step(params, epoch, generator, R_hat, edge_users,
-    edge_items, pos_mask) -> loss`` (detached, before the update)."""
-    hi = neg_hi if neg_hi is not None else n_items
+    lr, as ``train_step(params, epoch, generator, graph_op, edge_users,
+    edge_items, rejection) -> loss`` (detached, before the update)."""
     schedule = lr_schedule(hp.lr, hp.gamma, hp.epoch_per_lr_decay)
 
-    def train_step(params, epoch, generator, R_hat, edge_users, edge_items, pos_mask):
-        users, pos_items, neg_items = sample_bpr_batch(
-            generator, edge_users, edge_items, pos_mask, hp.batch_size, hi
-        )
+    def train_step(params, epoch, generator, graph_op, edge_users, edge_items, rejection):
+        users, pos_items, neg_items = sample(generator, edge_users, edge_items, rejection)
         optimizer.zero_grad(set_to_none=True)
-        loss = _loss_fn(params, R_hat, users, pos_items, neg_items, hp.epsilon,
-                        hp.layers, bf16_matmul, use_kernel)
+        loss = loss_of(params, graph_op, users, pos_items, neg_items)
         loss.backward()
         for group in optimizer.param_groups:
             group["lr"] = schedule(epoch)
@@ -196,12 +236,66 @@ def make_train_step(optimizer, hp, n_items: int, bf16_matmul: bool = False,
     return train_step
 
 
+def make_train_step(optimizer, hp, n_items: int, bf16_matmul: bool = False,
+                    use_kernel: bool = False, neg_hi: Optional[int] = None,
+                    csr_sampler: bool = False):
+    """The dense-incidence step (``_loss_fn``). ``neg_hi`` bounds the
+    negative candidates (``n_items`` by default; ``hparams.neg_range=
+    'reference'`` passes the split-bounded range). The step's rejection
+    argument is the (U, I) ``pos_mask``, or with ``csr_sampler`` the CSR keys
+    of ``ops/scalable.csr_keys`` (the same triples; the kernel route and the
+    rung use it where the eval arrays do not fit)."""
+    hi = neg_hi if neg_hi is not None else n_items
+
+    def sample(generator, edge_users, edge_items, rejection):
+        sampler = sample_bpr_batch_csr if csr_sampler else sample_bpr_batch
+        return sampler(generator, edge_users, edge_items, rejection, hp.batch_size, hi)
+
+    def loss_of(params, R_hat, users, pos_items, neg_items):
+        return _loss_fn(params, R_hat, users, pos_items, neg_items, hp.epsilon, hp.layers,
+                        bf16_matmul, use_kernel)
+
+    return _make_step(optimizer, hp, sample, loss_of)
+
+
+def make_coo_train_step(optimizer, hp, n_items: int, neg_hi: Optional[int] = None):
+    """The large-graph step (JAX ``make_coo_train_step``): the forward and
+    the backward over the bucketed incidence of ``build_bucketed_incidence``
+    (gathers and dense sums only), negatives rejected against CSR keys; the
+    edges keep their original order, so the triples are the dense
+    sampler's."""
+    hi = neg_hi if neg_hi is not None else n_items
+
+    def sample(generator, edge_users, edge_items, keys):
+        return sample_bpr_batch_csr(generator, edge_users, edge_items, keys, hp.batch_size, hi)
+
+    def loss_of(params, binc, users, pos_items, neg_items):
+        u_final, i_final = lightgcn_propagate_bucketed(params.user_emb, params.item_emb, binc,
+                                                       hp.layers)
+        return _bpr_of_finals(params, u_final, i_final, users, pos_items, neg_items,
+                              hp.epsilon)
+
+    return _make_step(optimizer, hp, sample, loss_of)
+
+
 @torch.no_grad()
 def val_loss_fn(params, R_hat_val, users, pos_items, neg_items, epsilon, n_layers):
     """Reference ``calValLoss``: forward on the VAL adjacency at the tables'
     precision (never the kernel route), BPR over all val edges
     (``model/LightGCN/evaluation.py:56-86``)."""
     return _loss_fn(params, R_hat_val, users, pos_items, neg_items, epsilon, n_layers)
+
+
+@torch.no_grad()
+def coo_val_loss_fn(params, edge_users, edge_items, edge_norm, users, pos_items, neg_items,
+                    epsilon, n_layers):
+    """``val_loss_fn`` over the val edge list: the forward is the COO
+    propagation with ``edge_gcn_norm`` weights (JAX ``_coo_val_loss``)."""
+    u_final, i_final = lightgcn_propagate_coo(
+        params.user_emb, params.item_emb, edge_users, edge_items, edge_norm,
+        params.user_emb.shape[0], params.item_emb.shape[0], n_layers,
+    )
+    return _bpr_of_finals(params, u_final, i_final, users, pos_items, neg_items, epsilon)
 
 
 @torch.no_grad()
@@ -220,18 +314,15 @@ def _val_eval(params, train_pos, val_pos, val_counts, val_present, train_interac
 def device_binary_factors(n_users: int, n_items: int, es: EdgeSet, device):
     """``data/graph.binary_incidence_factors`` built on ``device`` from the
     edge arrays, with the same values: (R int8 0/1, du^-1/2 f32,
-    di^-1/2 f32), the inverse square roots taken in f64. The kernel route
-    then pads R's rows (``pad_for_dual``)."""
+    di^-1/2 f32), the binary degrees counted on the deduplicated edges and
+    their inverse square roots taken in f64 (no (U, I) temporary beside R).
+    The kernel route then pads R's rows (``pad_for_dual``)."""
+    ded = unique_edges(es)
+    users = torch.from_numpy(ded.users.astype(np.int64)).to(device)
+    items = torch.from_numpy(ded.items.astype(np.int64)).to(device)
     R8 = torch.zeros((n_users, n_items), dtype=torch.int8, device=device)
-    R8[torch.from_numpy(np.asarray(es.users, np.int64)).to(device),
-       torch.from_numpy(np.asarray(es.items, np.int64)).to(device)] = 1
-
-    def inv_sqrt(deg):
-        return torch.where(deg > 0, 1.0 / torch.sqrt(deg.clamp_min(1.0)),
-                           torch.zeros_like(deg)).float()
-
-    return (R8, inv_sqrt(R8.sum(dim=1, dtype=torch.float64)),
-            inv_sqrt(R8.sum(dim=0, dtype=torch.float64)))
+    R8[users, items] = 1
+    return R8, degree_inv_sqrt(users, n_users), degree_inv_sqrt(items, n_items)
 
 
 def _not_ported(what: str, item: int) -> NotImplementedError:
@@ -258,9 +349,9 @@ def train_lightgcn(
     device = resolve_device(device)
     U, I = graph.n_users, graph.n_items
     if checkpoint_dir:
-        raise _not_ported("mid-train resume (checkpoint_dir)", 10)
+        raise _not_ported("mid-train resume (checkpoint_dir)", 6)
     if tuple(cfg.compute.mesh_shape) != (1, 1):
-        raise _not_ported("multi-device training (compute.mesh_shape)", 11)
+        raise _not_ported("multi-device training (compute.mesh_shape)", 7)
     if cfg.compute.coo_table_sharding:
         raise ValueError(
             "compute.coo_table_sharding requires a resolved mesh (--mesh); "
@@ -283,9 +374,12 @@ def train_lightgcn(
                               for t in params))
 
     _bf16 = cfg.compute.dtype == "bfloat16"
-    _kernel = cfg.compute.use_pallas and device.type == "cuda"
-    if choose_propagation(U, I, graph.train.n_edges, cfg.compute) == "coo":
-        raise _not_ported("COO (large-graph) propagation", 8)
+    _kernel = uses_kernels(cfg.compute, device)
+    propagation = choose_propagation(U, I, graph.train.n_edges, cfg.compute)
+    # the eval layout is chosen apart from the train propagation: the
+    # kernel route and the rung train on a 1- or 2-byte incidence at
+    # catalogs whose f32 (U, I) eval arrays would not fit
+    eval_dense = propagation == "dense" and 4.0 * U * I <= DENSIFY_BUDGET_BYTES
 
     # LightGCN-side edge lists are DEDUPED (utils/graph.py:23-25); the
     # metric side keeps the raw rows (item_degrees / user_pos_counts)
@@ -302,7 +396,6 @@ def train_lightgcn(
     val_edge_users, val_edge_items = edges(val_es.users), edges(val_es.items)
     val_counts = dense(user_pos_counts(U, graph.val))
     val_present = dense(users_present(U, graph.val))
-    train_deg = dense(item_degrees(I, graph.train))
 
     # negative-candidate upper bound per split (docs/PARITY.md deviation 6)
     if hp.neg_range == "reference":
@@ -329,47 +422,96 @@ def train_lightgcn(
         )
     val_reject_uid = hp.neg_range == "reference"
 
-    if _kernel and _bf16 and fits_dual(hp.embedding_dim, device):
+    if propagation == "coo":
+        graph_op = build_bucketed_incidence(
+            train_es.users, train_es.items,
+            edge_gcn_norm(edge_users, edge_items, U, I).cpu().numpy(), U, I, device=device)
+        log.info("training %s: graph too large/sparse to densify, COO propagation "
+                 "(bucketed-ELL aggregation) on %s", model_name, device)
+    elif _kernel and _bf16 and fits_dual(hp.embedding_dim, device):
         R8, du_inv, di_inv = device_binary_factors(U, I, graph.train, device)
         # the kernel reads R's rows in 16-byte copies; the incidence is
         # constant, so its padded-stride copy is built once for the run
-        R_hat = (pad_for_dual(R8), du_inv, di_inv)
+        graph_op = (pad_for_dual(R8), du_inv, di_inv)
+        del R8
         log.info("training %s: int8 binary incidence through the dual_matmul CUDA kernel",
                  model_name)
     elif _bf16 and 4.0 * U * I > HOST_INCIDENCE_BUILD_BYTES:
-        raise _not_ported("the bf16-dense training rung", 8)
+        graph_op = device_bf16_incidence(U, I, graph.train, device)
+        log.info("training %s: bf16-dense rung (bf16 incidence built on %s)", model_name,
+                 device)
     else:
-        R_hat = dense(normalized_bipartite(U, I, graph.train, dtype=np_dtype),
-                      torch.bfloat16 if _bf16 else dtype)
+        graph_op = dense(normalized_bipartite(U, I, graph.train, dtype=np_dtype),
+                         torch.bfloat16 if _bf16 else dtype)
         log.info("training %s: plain dense propagation (%s incidence) on %s",
                  model_name, "bf16" if _bf16 else cfg.compute.dtype, device)
-    if 4.0 * U * I > DENSIFY_BUDGET_BYTES:
-        raise _not_ported("CSR evaluation of large catalogs", 8)
-    R_hat_val = dense(normalized_bipartite(U, I, graph.val, dtype=np_dtype), dtype)
-    train_pos = dense(pos_bool_matrix(U, I, graph.train))
-    val_pos = dense(pos_bool_matrix(U, I, graph.val))
-    train_interaction = dense(interaction_matrix(U, I, graph.train))
+
+    if eval_dense:
+        R_hat_val = dense(normalized_bipartite(U, I, graph.val, dtype=np_dtype), dtype)
+        train_pos = dense(pos_bool_matrix(U, I, graph.train))
+        val_pos = dense(pos_bool_matrix(U, I, graph.val))
+        train_interaction = dense(interaction_matrix(U, I, graph.train))
+        train_deg = dense(item_degrees(I, graph.train))
+        rejection = train_pos
+
+        def val_loss(params, generator):
+            v_users, v_pos, v_neg = sample_negatives_for_edges(
+                generator, val_edge_users, val_edge_items, val_pos, neg_hi_val,
+                reject_user_ids=val_reject_uid,
+            )
+            return val_loss_fn(params, R_hat_val, v_users, v_pos, v_neg, hp.epsilon,
+                               hp.layers)
+
+        def eval_fn(params):
+            return _val_eval(params, train_pos, val_pos, val_counts, val_present,
+                             train_interaction, train_deg, cfg.k, I)[1:]
+    else:
+        # NOTHING here is O(U*I): rejection, masks, hits and the Sorensen
+        # metric run against CSR structures, retrieval in user chunks
+        log.info("evaluating %s on the CSR structures (f32 (U, I) eval arrays: %.3g bytes)",
+                 model_name, 4.0 * U * I)
+        rowptr, cols = user_csr(U, train_es)
+        rejection = csr_keys(rowptr, cols, device)
+        v_keys = csr_keys(*user_csr(U, val_es), device)
+        val_edge_norm = edge_gcn_norm(val_edge_users, val_edge_items, U, I)
+        inter_edges = (np.asarray(graph.train.users), np.asarray(graph.train.items))
+        train_deg_np = item_degrees(I, graph.train)
+
+        def val_loss(params, generator):
+            # every val edge exactly once (calValLoss, evaluation.py:68-77)
+            v_users, v_pos, v_neg = sample_negatives_for_edges_csr(
+                generator, val_edge_users, val_edge_items, v_keys, neg_hi_val,
+                reject_user_ids=val_reject_uid,
+            )
+            return coo_val_loss_fn(params, val_edge_users, val_edge_items, val_edge_norm,
+                                   v_users, v_pos, v_neg, hp.epsilon, hp.layers)
+
+        @torch.no_grad()
+        def eval_fn(params):
+            rec = chunked_masked_topk(params.user_emb, params.item_emb, rowptr, cols, cfg.k)
+            hits = hits_csr(rec, v_keys)
+            p, r = metrics_ops.precision_recall_from_hits(hits, val_counts, val_present)
+            n = metrics_ops.ndcg_from_hits(hits, val_present)
+            h = metrics_ops.hamming_distance(rec, I)
+            i = internal_similarity_csr(rec, inter_edges, U, I, train_deg_np)
+            return p, r, n, h, i
 
     optimizer = make_optimizer(hp, params)
-    train_step = make_train_step(optimizer, hp, I, bf16_matmul=_bf16, use_kernel=_kernel,
-                                 neg_hi=neg_hi_train)
+    if propagation == "coo":
+        train_step = make_coo_train_step(optimizer, hp, I, neg_hi=neg_hi_train)
+    else:
+        train_step = make_train_step(optimizer, hp, I, bf16_matmul=_bf16, use_kernel=_kernel,
+                                     neg_hi=neg_hi_train, csr_sampler=not eval_dense)
 
     history: Dict[str, List[float]] = {name: [] for name in HISTORY_COLUMNS}
     with stage_timer(f"{model_name} training done ({hp.epochs} epochs)", log):
         for epoch in range(hp.epochs):
             loss = train_step(params, epoch, epoch_generator(hp.seed, epoch, device),
-                              R_hat, edge_users, edge_items, train_pos)
+                              graph_op, edge_users, edge_items, rejection)
             if epoch % hp.epoch_per_eval != 0:
                 continue
-            v_users, v_pos, v_neg = sample_negatives_for_edges(
-                epoch_generator(hp.seed, hp.epochs + epoch, device), val_edge_users,
-                val_edge_items, val_pos, neg_hi_val, reject_user_ids=val_reject_uid,
-            )
-            vloss = val_loss_fn(params, R_hat_val, v_users, v_pos, v_neg, hp.epsilon,
-                                hp.layers)
-            _, p, r, n, h, i = _val_eval(params, train_pos, val_pos, val_counts,
-                                         val_present, train_interaction, train_deg,
-                                         cfg.k, I)
+            vloss = val_loss(params, epoch_generator(hp.seed, hp.epochs + epoch, device))
+            p, r, n, h, i = eval_fn(params)
             tl, vl = round(float(loss), 5), round(float(vloss), 5)
             p, r, n = round(float(p), 5), round(float(r), 5), round(float(n), 5)
             f1 = round(2 * p * r / (p + r), 5) if (p + r) else 0.0

@@ -92,14 +92,16 @@ def test_serve_exact_takes_the_plain_chain(tmp_path):
 
 
 def test_missing_checkpoint_raises(tmp_path):
-    """A missing checkpoint trains first; on a graph that needs a training
-    path not ported yet (COO: density below compute.dense_threshold) that
-    raises with its ROADMAP pointer, and nothing is served."""
-    sparse = ["--dataset", "synthetic", "--env", "dev", "--users", "4000",
-              "--items", "20000", "--interactions", "3000", "--k", "10"]
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 8"):
+    """A missing checkpoint trains first; when training raises, the error
+    comes through and nothing is served. Here: ``--neg-range reference`` on
+    a graph whose max user id passes the catalog, which both trainers
+    refuse (the sparse graph that raised before now trains through the COO
+    route, ``tests/test_torch_large_train.py``)."""
+    args = ["--dataset", "synthetic", "--env", "dev", "--users", "400", "--items", "100",
+            "--interactions", "5000", "--k", "10", "--neg-range", "reference"]
+    with pytest.raises(ValueError, match="neg_range='reference'"):
         t_retrieve.main(["--device", "cpu", "--model", "LightGCN",
-                         "--workdir", str(tmp_path), *sparse])
+                         "--workdir", str(tmp_path), *args])
     assert not os.path.exists(tmp_path / "synthetic" / "recommend" / "retrieval_LightGCN_10.npy")
 
 

@@ -317,9 +317,8 @@ def test_unported_branches_raise_with_roadmap_pointers():
     _, tg = _graph_pair(7)
     base = tcfg.load_config(dataset="synthetic", overrides={"hparams.epochs": 1})
     cases = [
-        (base.replace(compute=base.compute.__class__(mesh_shape=(2, 1))), {}, "item 11"),
-        (base, {"checkpoint_dir": "ckpt"}, "item 10"),
-        (base.replace(compute=base.compute.__class__(dense_threshold=0.9)), {}, "item 8"),
+        (base.replace(compute=base.compute.__class__(mesh_shape=(2, 1))), {}, "item 7"),
+        (base, {"checkpoint_dir": "ckpt"}, "item 6"),
     ]
     for cfg, kw, pointer in cases:
         with pytest.raises(NotImplementedError, match=pointer):
