@@ -96,6 +96,27 @@ neither JAX nor ``lgcnhs_tpu``. Phases:
    stand-in forced into COO beside its dense f32 route, one seed. Launch
    counts set to 0 before each run and read after; each run's seconds, ms
    a step, CSR-evaluation retrieval and I@k seconds and peak memory.
+7. The single-device entry points (``lambda_resume_report_phase``), run
+   right after phase 4 on its workdirs, every launch count set to 0 before
+   each run and read after: (a) ``cli/find_lambda`` at ML-1M over the full 101-point grid on
+   the checkpoint phase 4 trained (loaded, not trained; no kernel
+   launched), its rows at lambda 0, 0.5, the preset's 0.6 and 1 held
+   against ``fused_recommend`` plus the evaluation on the card (the lists
+   identical or tie-equivalent, the metrics by phase 4's rule) and against
+   the same sweep on the CPU; (b) the W-free flavor over the 49,410-item
+   catalog at ``--step 0.25`` (5 points; every function that builds an
+   (I, I) operand made to raise), lambda 0.5 held as in (a); (c) resume on
+   the ``dual_matmul`` route at ML-1M, one seed: 40 epochs uninterrupted,
+   then 21 with a checkpoint every 20 and a resume to 40, 240 launches in
+   each, the restored state bitwise the saved one, tables within 1e-3 and
+   history within 1e-4 of the uninterrupted run; (d) ``cli/evaluate`` over
+   phase 4's cached lists of the seven models at k=100, each metric dict
+   equal to phase 4's ``cli/main`` line, the workbook a zip with one sheet,
+   then ``cli/ablation`` on its CSV (a chart where matplotlib imports).
+   Each run's host seconds and peak device memory, the sweep's seconds a
+   grid point split into diffusion, ranking and metrics, the resume's save
+   and restore ms. Phase 5 also times fused serving over the 49,410-item
+   catalog beside matmul+topk on the same inputs.
 
 Prints one PASS/FAIL line per check, then (all passed) the kernel JSON line,
 the ``nvidia-smi`` name/power-limit line, and the final
@@ -162,6 +183,13 @@ COO_TABLE_TOL = 1e-4
 # the kernel 3.47e-5 of scale from the exact sums (the twin's f32 matmul
 # 1.3e-7); a misplaced tile is O(1).
 LARGE_DUAL_REL_TOL = 1e-4
+# phase 7 (c): resume on the dual_matmul route at ML-1M. The card sums the
+# backward of the table gathers with atomics, in no fixed order, so two runs
+# of the same route are not bitwise equal; the bar is the kernel-vs-twin
+# one above (tables 1e-3, history 1e-4), 50x the gaps measured there.
+RESUME_EPOCHS, RESUME_STOP, RESUME_EVERY, RESUME_EVAL_EVERY = 40, 21, 20, 10
+RESUME_TABLE_TOL = 1e-3
+RESUME_HISTORY_TOL = 1e-4
 
 
 class Checks:
@@ -218,6 +246,39 @@ def gpu_name_and_power():
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()
     return out[0].strip()
+
+
+def metrics_disagree(card, card_un, cpu_un):
+    """Keys where the card's rounded dict departs from the CPU's values: a
+    rounded value must equal the CPU's, or the two unrounded values lie
+    within 1e-5 relative on two sides of a 5-decimal boundary; F1 (from
+    the rounded P and R) must equal the CPU's where P and R do."""
+    bad = [key for key, v in cpu_un.items()
+           if card[key] != round(v, 5)
+           and not (card[key] == round(card_un[key], 5)
+                    and abs(card_un[key] - v) <= 1e-5 * abs(v))]
+    p, r = round(cpu_un["P"], 5), round(cpu_un["R"], 5)
+    f1 = 0.0 if p + r == 0 else round(2 * p * r / (p + r), 5)
+    if (card["P"], card["R"]) == (p, r) and card["F1"] != f1:
+        bad.append("F1")
+    return bad
+
+
+def unrounded(ctx, rec, direct):
+    """P, R, NDCG, H, I of ``rec`` before rounding; ``direct``: I without the
+    (I, I) similarity matrix (``internal_similarity_direct``)."""
+    from lgcnhs_tpu_torch.eval import metrics as tev
+    from lgcnhs_tpu_torch.ops import metrics_ops
+
+    p, r, n = tev.accuracy_unrounded(ctx, rec)
+    if direct:
+        rec_t = ctx.on_device(rec)
+        h = float(metrics_ops.hamming_distance(rec_t, ctx.n_items))
+        i = float(metrics_ops.internal_similarity_direct(
+            rec_t, ctx.on_device(ctx.interaction), ctx.on_device(ctx.item_deg)))
+    else:
+        h, i = tev.diversity_unrounded(ctx, rec)
+    return {"P": p, "R": r, "NDCG": n, "H": h, "I": i}
 
 
 def median_ms(torch, fn, reps, warmup=1):
@@ -574,6 +635,372 @@ def large_graph_phase(check, dev, smi, clock):
     check(f"ML-1M COO route tracks the dense f32 route over {TWIN_EPOCHS} epochs: tables",
           table_gap <= COO_TABLE_TOL, f"max gap {table_gap:.3e}, tolerance {COO_TABLE_TOL:g}")
     shutil.rmtree(work, ignore_errors=True)
+    return out
+
+
+class SweepProbe:
+    """Splits a lambda sweep's host seconds per grid point into diffusion
+    (from the diffusion call to the ranking: W, A . W, G * F),
+    ranking and metrics, the card synchronized around each part, by
+    wrapping the names ``ops/sweep`` calls while it is active."""
+
+    NAMES = ("hybrid_resource", "user_factored_diffusion_scores", "rank_exclude_seen_topk",
+             "_metrics_for_rec")
+
+    def __init__(self, torch, sweep):
+        self.torch, self.sweep = torch, sweep
+        self.seconds = {"diffusion": 0.0, "ranking": 0.0, "metrics": 0.0}
+        self.points = 0
+
+    def _mark(self):
+        self.torch.cuda.synchronize()
+        return time.perf_counter()
+
+    def __enter__(self):
+        self.saved = {name: getattr(self.sweep, name) for name in self.NAMES}
+
+        def diffusion(fn):
+            def call(*a, **kw):
+                self.points += 1
+                self.t_diffusion = self._mark()
+                return fn(*a, **kw)
+            return call
+
+        def timed(fn, part):
+            def call(*a, **kw):
+                t0 = self._mark()
+                if part == "ranking":
+                    self.seconds["diffusion"] += t0 - self.t_diffusion
+                out = fn(*a, **kw)
+                self.seconds[part] += self._mark() - t0
+                return out
+            return call
+
+        s = self.saved
+        self.sweep.hybrid_resource = diffusion(s["hybrid_resource"])
+        self.sweep.user_factored_diffusion_scores = diffusion(s["user_factored_diffusion_scores"])
+        self.sweep.rank_exclude_seen_topk = timed(s["rank_exclude_seen_topk"], "ranking")
+        self.sweep._metrics_for_rec = timed(s["_metrics_for_rec"], "metrics")
+        return self
+
+    def per_point(self):
+        return {part: secs / max(self.points, 1) for part, secs in self.seconds.items()}
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.sweep, name, fn)
+        return False
+
+
+def lambda_resume_report_phase(check, dev, smi, env):
+    """Phase 7: the single-device entry points on the card, on phase 4's
+    workdirs. (a) ``cli/find_lambda`` at ML-1M over the full 101-point grid
+    on the LightGCNOpti checkpoint phase 4 trained, its rows at lambda 0,
+    0.5, the preset's 0.6 and 1 held against ``fused_recommend`` plus the
+    evaluation on the card and against the sweep on the CPU; (b) the W-free
+    flavor over the 49,410-item catalog at ``--step 0.25``; (c) resume on
+    the ``dual_matmul`` route; (d) ``cli/evaluate`` over phase 4's cached
+    lists and ``cli/ablation`` on its CSV. Returns the measurements."""
+    import dataclasses
+    import zipfile
+
+    import numpy as np
+    import torch
+
+    from lgcnhs_tpu_torch.cli import ablation, evaluate, find_lambda
+    from lgcnhs_tpu_torch.data.graph import interaction_matrix, pos_bool_matrix
+    from lgcnhs_tpu_torch.eval import metrics as tev
+    from lgcnhs_tpu_torch.models.fusion import allocate_matrix, fused_recommend
+    from lgcnhs_tpu_torch.models.recommenders import checkpoint_path
+    from lgcnhs_tpu_torch.ops import metrics_ops
+    from lgcnhs_tpu_torch.ops import sweep as tsweep
+    from lgcnhs_tpu_torch.ops.diffusion import general_spreading_matrix
+    from lgcnhs_tpu_torch.ops.topk import rank_exclude_seen_topk
+    from lgcnhs_tpu_torch.runtime.table import read_csv, rows_to_columns
+    from lgcnhs_tpu_torch.train import checkpoint as tckpt
+    from lgcnhs_tpu_torch.train import trainer
+    from lgcnhs_tpu_torch.train.trainer import load_checkpoint
+
+    kernels, graph, ml1m, big = env["kernels"], env["graph"], env["ml1m"], env["big"]
+    work, train_work = env["work"], env["train_work"]
+    out = {"runs": []}
+    logged = []
+
+    class Keep(logging.Handler):
+        def emit(self, record):
+            logged.append(record.getMessage())
+
+    keep = Keep(logging.INFO)
+    logging.getLogger("lgcnhs").addHandler(keep)
+
+    def run(label, fn):
+        """fn() with every launch count set to 0 just before and read just
+        after; host seconds and peak device memory."""
+        for f in kernels.values():
+            f.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        row = {"run": label, "host_s": time.perf_counter() - t0,
+               "peak_device_gb": torch.cuda.max_memory_allocated() / 1e9,
+               "launches": {name: f.launches for name, f in kernels.items()}}
+        out["runs"].append(row)
+        print(f"[phase 7] {label}: {row['host_s']:.4f} s, peak device memory "
+              f"{row['peak_device_gb']:.2f} GB, launches {row['launches']} [{smi}]", flush=True)
+        return result, row
+
+    def cuda(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+
+    def as_dict(row):
+        return dict(zip(tsweep.METRIC_COLUMNS, (float(v) for v in row)))
+
+    def spot_checks(label, cfg, g, rows, lambdas, spots, tall):
+        """The sweep's rows at ``spots`` against fused_recommend + the
+        evaluation at each lambda on the card (the lists identical, or
+        tie-equivalent under f64 scores; the metrics by the phase-4 rule),
+        and (dense flavor) against the same sweep run on the CPU."""
+        k = cfg.k
+        params = load_checkpoint(checkpoint_path(cfg), dev)
+        A = cuda(interaction_matrix(g.n_users, g.n_items, g.train, g.val))
+        seen = cuda(pos_bool_matrix(g.n_users, g.n_items, g.train, g.val))
+        ctx = tev.EvalContext.build(g.n_users, g.n_items, g.test, g.train, g.val, dev)
+        G = allocate_matrix(params, seen)
+        grid = lambdas[spots]
+        ev = (ctx.on_device(ctx.eval_pos), ctx.on_device(ctx.eval_counts),
+              ctx.on_device(ctx.eval_present))
+        if tall:
+            card = tsweep.lambda_sweep_metrics_tall(grid, G, A, seen, *ev,
+                                                    ctx.on_device(ctx.item_deg), k)
+        else:
+            W_gen = general_spreading_matrix(A)
+            S = metrics_ops.similarity_matrix(ctx.on_device(ctx.interaction),
+                                              ctx.on_device(ctx.item_deg))
+            card = tsweep.lambda_sweep_metrics(grid, G, A, W_gen, seen, *ev, S, k)
+        card = card.cpu().numpy()
+        check(f"{label}: the sweep over the spot points gives the CLI's rows",
+              tsweep.sweep_rows(grid, card) == [rows[j] for j in spots])
+        for n, (j, lam) in enumerate(zip(spots, grid)):
+            lam_t = torch.tensor(lam)
+            F = (tsweep.user_factored_diffusion_scores(A, lam_t) if tall
+                 else tsweep.hybrid_resource(A, W_gen, lam_t))
+            got = rank_exclude_seen_topk(G * F, seen, k)
+            want = fused_recommend(params, A, seen, lam_t, k)
+            agreement, gap = 1.0, 0.0
+            if not torch.equal(got, want):
+                ref = G.double() * F.double()
+                agreement, gap = tie_equivalence(torch, want, got, ref)
+                del ref
+            del F
+            per = unrounded(ctx, want.cpu().numpy(), tall)
+            bad = metrics_disagree(rows[j], as_dict(card[n]), per)
+            check(f"{label} lambda={rows[j]['lambda']}: the sweep's list equals "
+                  "fused_recommend's (or tie-equivalent under f64), its row the evaluation's",
+                  (agreement == 1.0 or (agreement >= AGREEMENT_MIN and gap <= GAP_MAX))
+                  and not bad,
+                  f"agreement {agreement:.6f}, gap {gap:.3e}; metrics disagree on {bad}")
+        if not tall:
+            t0 = time.perf_counter()
+            A_h, seen_h = A.cpu(), seen.cpu()
+            ctx_h = tev.EvalContext.build(g.n_users, g.n_items, g.test, g.train, g.val, "cpu")
+            cpu = tsweep.lambda_sweep_metrics(
+                grid, allocate_matrix(load_checkpoint(checkpoint_path(cfg), "cpu"), seen_h),
+                A_h, general_spreading_matrix(A_h), seen_h,
+                *(torch.from_numpy(x) for x in (ctx_h.eval_pos, ctx_h.eval_counts,
+                                                ctx_h.eval_present)),
+                metrics_ops.similarity_matrix(torch.from_numpy(ctx_h.interaction),
+                                              torch.from_numpy(ctx_h.item_deg)), k).numpy()
+            bad = {rows[j]["lambda"]: metrics_disagree(rows[j], as_dict(card[n]), as_dict(cpu[n]))
+                   for n, j in enumerate(spots)}
+            check(f"{label}: the spot rows equal the sweep on the CPU (or differ only across "
+                  "a 5-decimal boundary within 1e-5)", not any(bad.values()),
+                  f"{bad}; CPU {time.perf_counter() - t0:.2f} s")
+        del G, A, seen
+        torch.cuda.empty_cache()
+
+    def sweep_run(label, args, step_grid, cfg, g, tall):
+        with SweepProbe(torch, tsweep) as probe:
+            rows, row = run(label, lambda: find_lambda.main(
+                ["--device", "cuda", "--model", "SpreadLightGCNOpti", *args]))
+        row["per_point_s"] = probe.per_point()
+        row["points"] = probe.points
+        print(f"[phase 7] {label}: {probe.points} points, per point (host s, card "
+              f"synchronized) {json.dumps(row['per_point_s'])} [{smi}]", flush=True)
+        check(f"{label}: no kernel launched (no training, no serving kernel)",
+              not any(row["launches"].values()), f"{row['launches']}")
+        lambdas = np.arange(0.0, 1.0 + step_grid, step_grid, dtype=np.float32)
+        check(f"{label}: {len(lambdas)} rows, every metric finite in [0, 1]",
+              [r["lambda"] for r in rows] == [round(float(x), 4) for x in lambdas]
+              and all(0.0 <= r[m] <= 1.0 for r in rows for m in ("P", "R", "F1", "NDCG", "H", "I")))
+        table = read_csv(os.path.join(cfg.evaluation_path, f"lambda_evaluation_{cfg.k}.csv"))
+        check(f"{label}: lambda_evaluation_{cfg.k}.csv reads back the rows",
+              table == rows_to_columns(rows))
+        return rows, lambdas
+
+    config = env["config"]  # (model, arguments, workdir) -> the config a CLI run resolves
+
+    # (a) the full grid at ML-1M on phase 4's trained checkpoint
+    cfg_a = config("SpreadLightGCNOpti", ml1m, train_work)
+    logged.clear()
+    rows_a, lambdas = sweep_run("find_lambda movielens1m, 101 points",
+                                ["--workdir", train_work, *ml1m], 0.01, cfg_a, graph, False)
+    check("find_lambda movielens1m: the dense flavor, the checkpoint loaded (not trained)",
+          any(m.startswith("lambda sweep: dense flavor") for m in logged)
+          and any(m.startswith("loaded cached LightGCNOpti checkpoint") for m in logged))
+    spots = [int(np.argmin(np.abs(lambdas - lam))) for lam in
+             (0.0, 0.5, cfg_a.hparams.lambda_, 1.0)]
+    spot_checks("find_lambda movielens1m", cfg_a, graph, rows_a, lambdas, spots, False)
+    best = max(rows_a, key=lambda r: r["R"])
+    print(f"[phase 7] find_lambda movielens1m: best R@{cfg_a.k} {json.dumps(best)}; preset "
+          f"{json.dumps(rows_a[spots[2]])}", flush=True)
+
+    # (b) the W-free flavor over 49,410 items; nothing (I, I) may be built
+    def no_ii(*a, **kw):
+        raise AssertionError("an (I, I) operand was built on the W-free path")
+
+    saved = {name: getattr(find_lambda, name) for name in
+             ("general_spreading_matrix", "similarity_matrix", "lambda_sweep_metrics")}
+    for name in saved:
+        setattr(find_lambda, name, no_ii)
+    logged.clear()
+    cfg_b = config("SpreadLightGCNOpti", big, work)
+    try:
+        rows_b, lambdas_b = sweep_run(f"find_lambda {BIG_CATALOG}-item draw, 5 points",
+                                      ["--workdir", work, *big, "--step", "0.25"], 0.25, cfg_b,
+                                      env["big_graph"], True)
+    finally:
+        for name, fn in saved.items():
+            setattr(find_lambda, name, fn)
+    check(f"find_lambda {BIG_CATALOG}-item draw: the log names the W-free flavor",
+          any("W-free flavor" in m for m in logged))
+    spot_checks(f"find_lambda {BIG_CATALOG}-item draw", cfg_b, env["big_graph"], rows_b,
+                lambdas_b, [2], True)
+
+    # (c) resume on the dual_matmul route
+    resume_work = tempfile.mkdtemp(prefix="chip_smoke_resume_", dir=os.path.join(ROOT, "artifacts"))
+
+    def cfg_c(name, epochs):
+        cfg = config("LightGCNOpti", ml1m, os.path.join(resume_work, name))
+        return cfg.replace(hparams=dataclasses.replace(
+            cfg.hparams, epochs=epochs, epoch_per_eval=RESUME_EVAL_EVERY))
+
+    def train(name, epochs, **kw):
+        return trainer.train_lightgcn(graph, cfg_c(name, epochs), *env["feats"], device=dev,
+                                      **kw)
+
+    full, row_full = run(f"train {RESUME_EPOCHS} epochs uninterrupted",
+                         lambda: train("full", RESUME_EPOCHS))
+    ckpt = os.path.join(resume_work, "ckpt")
+    captured, io_ms = {}, {"save": [], "restore": []}
+    real_save, real_restore = trainer.save_train_state, trainer.restore_train_state
+
+    def save(path, epoch, params, opt_state):
+        captured[epoch] = (tuple(t.detach().clone() for t in params),
+                           {n: {m: v.clone() for m, v in s.items()} for n, s in opt_state.items()})
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        written = real_save(path, epoch, params, opt_state)
+        io_ms["save"].append((time.perf_counter() - t0) * 1e3)
+        return written
+
+    def restore(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = real_restore(*a, **kw)
+        torch.cuda.synchronize()
+        if got is not None:
+            io_ms["restore"].append((time.perf_counter() - t0) * 1e3)
+        return got
+
+    trainer.save_train_state, trainer.restore_train_state = save, restore
+    try:
+        _, row_first = run(f"train {RESUME_STOP} epochs, checkpoint every {RESUME_EVERY}",
+                           lambda: train("resumed", RESUME_STOP, checkpoint_dir=ckpt,
+                                         checkpoint_every=RESUME_EVERY))
+        restored = tckpt.restore_train_state(ckpt, dev)
+        resumed, row_resumed = run(f"resume to {RESUME_EPOCHS} epochs",
+                                   lambda: train("resumed", RESUME_EPOCHS, checkpoint_dir=ckpt,
+                                                 checkpoint_every=RESUME_EVERY))
+    finally:
+        trainer.save_train_state, trainer.restore_train_state = real_save, real_restore
+    launches = {"uninterrupted": row_full["launches"]["dual_matmul"],
+                "interrupted_and_resumed": row_first["launches"]["dual_matmul"]
+                + row_resumed["launches"]["dual_matmul"]}
+    out["resume_launches"] = launches
+    check(f"resume: dual_matmul launched 6 a step, {6 * RESUME_EPOCHS} in each of the two runs, "
+          "no other kernel",
+          launches == {"uninterrupted": 6 * RESUME_EPOCHS,
+                       "interrupted_and_resumed": 6 * RESUME_EPOCHS}
+          and not any(n for r in (row_full, row_first, row_resumed)
+                      for name, n in r["launches"].items() if name != "dual_matmul"),
+          f"{launches}")
+    saved_epoch = RESUME_EVERY
+    ok = restored is not None and restored[0] == saved_epoch and saved_epoch in captured
+    if ok:
+        s_params, s_state = captured[saved_epoch]
+        ok = all(torch.equal(a, b) for a, b in zip(restored[1], s_params)) and all(
+            torch.equal(restored[2][n][m].to(s_state[n][m].device), s_state[n][m])
+            for n in s_state for m in s_state[n])
+    check(f"resume: the restored state (tables, Adam's moments and step) equals the state saved "
+          f"at epoch {saved_epoch} bitwise", ok)
+    check(f"resume: one restore, from the epoch-{saved_epoch} checkpoint, logged",
+          len(io_ms["restore"]) == 1
+          and f"resumed from checkpoint at epoch {saved_epoch}" in logged)
+    table_gap = max((a - b).abs().max().item() for a, b in zip(resumed.params, full.params))
+    hist = {name: [] for name in full.history}
+    for name in full.history:
+        for e, a, b in zip(full.history["iters"], resumed.history[name], full.history[name]):
+            if name != "val_loss" or e > saved_epoch:  # carried val losses: another val draw
+                hist[name].append(abs(a - b))
+    hist_gap = max(max(v) for v in hist.values() if v)
+    out["resume"] = {"table_gap": table_gap, "history_gap": hist_gap, "io_ms": io_ms,
+                     "table_scale": max(t.abs().max().item() for t in full.params)}
+    print(f"[phase 7] resume vs uninterrupted, {RESUME_EPOCHS} epochs: max table gap "
+          f"{table_gap:.3e} (scale {out['resume']['table_scale']:.3e}), max history gap "
+          f"{hist_gap:.3e}; history {json.dumps(resumed.history)}; save ms {io_ms['save']}, "
+          f"restore ms {io_ms['restore']} [{smi}]", flush=True)
+    check("resume: the history covers the whole run (rows carried from the first run's CSV)",
+          resumed.history["iters"] == full.history["iters"]
+          == list(range(0, RESUME_EPOCHS, RESUME_EVAL_EVERY)), f"{resumed.history['iters']}")
+    check(f"resume: tables within {RESUME_TABLE_TOL:g} and history within "
+          f"{RESUME_HISTORY_TOL:g} of the uninterrupted run",
+          table_gap <= RESUME_TABLE_TOL and hist_gap <= RESUME_HISTORY_TOL,
+          f"table gap {table_gap:.3e}, history gap {hist_gap:.3e}")
+    shutil.rmtree(resume_work, ignore_errors=True)
+
+    # (d) cli/evaluate over phase 4's cached ML-1M lists, then the ablation
+    sheets, row_d = run("evaluate movielens1m, 7 models at k=100", lambda: evaluate.main(
+        ["--device", "cuda", "--workdir", work, *ml1m, "--ks", str(K_SLICE)]))
+    check("evaluate: no kernel launched", not any(row_d["launches"].values()),
+          f"{row_d['launches']}")
+    got = {r["Model"]: {m: r[m] for m in ("P", "R", "F1", "NDCG", "H", "I")}
+           for r in sheets.get(K_SLICE, [])}
+    want = {m: env["main_metrics"].get(f"{m} movielens1m") for m in env["models"]}
+    check("evaluate: each model's metric dict equals phase 4's cli/main JSON line",
+          got == want, f"{got} against {want}")
+    cfg_d = config("SpreadLightGCNOpti", ml1m, work)
+    book = os.path.join(cfg_d.evaluation_path, "model_evaluation_results.xlsx")
+    with zipfile.ZipFile(book) as zf:
+        sheet_parts = [n for n in zf.namelist() if n.startswith("xl/worksheets/")]
+        workbook = zf.read("xl/workbook.xml").decode()
+        ok = zf.testzip() is None
+    check("evaluate: the workbook opens as a zip with one sheet",
+          ok and sheet_parts == ["xl/worksheets/sheet1.xml"] and f'name="{K_SLICE}"' in workbook)
+    csv_rows = read_csv(os.path.join(cfg_d.evaluation_path, f"model_evaluation_{K_SLICE}.csv"))
+    check(f"evaluate: model_evaluation_{K_SLICE}.csv reads back the rows",
+          csv_rows == rows_to_columns(sheets.get(K_SLICE, [])))
+    charts, _ = run("ablation movielens1m", lambda: ablation.main(
+        ["--workdir", work, *ml1m, "--ks", str(K_SLICE)]))
+    try:
+        import matplotlib  # noqa: F401
+        want_charts = 1
+    except ImportError:
+        want_charts = 0
+    check(f"ablation: {want_charts} chart (matplotlib {'present' if want_charts else 'absent'})",
+          len(charts) == want_charts, f"{charts}")
+    logging.getLogger("lgcnhs").removeHandler(keep)
     return out
 
 
@@ -1159,34 +1586,6 @@ def main() -> int:
             return F
         return F.mul_(torch.where(seen, torch.full_like(F, MASK_VALUE), ue @ ie.T))
 
-    def unrounded(ctx, rec, direct):
-        """P, R, NDCG, H, I before rounding; ``direct``: I without the (I, I)
-        similarity matrix (``internal_similarity_direct``)."""
-        p, r, n = tev.accuracy_unrounded(ctx, rec)
-        if direct:
-            rec_t = ctx.on_device(rec)
-            h = float(metrics_ops.hamming_distance(rec_t, ctx.n_items))
-            i = float(metrics_ops.internal_similarity_direct(
-                rec_t, ctx.on_device(ctx.interaction), ctx.on_device(ctx.item_deg)))
-        else:
-            h, i = tev.diversity_unrounded(ctx, rec)
-        return {"P": p, "R": r, "NDCG": n, "H": h, "I": i}
-
-    def metrics_disagree(card, card_un, cpu_un):
-        """Keys where the card's rounded dict departs from the CPU's values: a
-        rounded value must equal the CPU's, or the two unrounded values lie
-        within 1e-5 relative on two sides of a 5-decimal boundary; F1 (from
-        the rounded P and R) must equal the CPU's where P and R do."""
-        bad = [key for key, v in cpu_un.items()
-               if card[key] != round(v, 5)
-               and not (card[key] == round(card_un[key], 5)
-                        and abs(card_un[key] - v) <= 1e-5 * abs(v))]
-        p, r = round(cpu_un["P"], 5), round(cpu_un["R"], 5)
-        f1 = 0.0 if p + r == 0 else round(2 * p * r / (p + r), 5)
-        if (card["P"], card["R"]) == (p, r) and card["F1"] != f1:
-            bad.append("F1")
-        return bad
-
     def main_run(model, args, workdir, label):
         """cli/main on the card, every launch count set to 0 just before it
         and read just after; its list and metrics held against the CPU."""
@@ -1347,6 +1746,18 @@ def main() -> int:
               f"max gap {table_gap:.3e}, tolerance {TWIN_TABLE_TOL:g}")
 
     check.guard("kernel route against the twin route", twin_route_compare)
+
+    # -- 7. the single-device entry points, on phase 4's workdirs ------------
+    print(f"[phase 7] find_lambda, resume, evaluate, ablation on {smi}", flush=True)
+    torch.cuda.empty_cache()
+    phase7 = check.guard("phase 7", lambda_resume_report_phase, check, dev, smi, {
+        "kernels": main_kernels, "config": run_config, "ml1m": ml1m, "graph": graph,
+        "feats": (feats_u, feats_i), "big": big,
+        "big_graph": cells[("LightGCNOpti", "synthetic", K_SLICE)][1], "work": work,
+        "train_work": train_work, "main_metrics": main_metrics, "models": main_models})
+    if phase7:
+        print(f"[phase 7] rows {json.dumps(phase7['runs'])}", flush=True)
+    torch.cuda.empty_cache()
     shutil.rmtree(work, ignore_errors=True)
     shutil.rmtree(train_work, ignore_errors=True)
 
@@ -1465,6 +1876,43 @@ def main() -> int:
               f"max_abs_err {max_abs_err:.3e}{extra} [{smi}]", flush=True)
         report.append(row)
 
+    def serve_catalog_timing():
+        """Fused serving over the 49,410-item catalog beside matmul+topk on
+        the same inputs (the library composition), as at ML-1M above."""
+        cfg, g, params = cells[("SpreadLightGCNOpti", "synthetic", K_SLICE)]
+        ue, ie = params.user_emb.to(dev), params.item_emb.to(dev)
+        A = cuda(interaction_matrix(g.n_users, g.n_items, g.train, g.val))
+        seen = A > 0
+        W = hybrid_transfer(A, general_spreading_matrix(A), cfg.hparams.lambda_)
+        torch.cuda.empty_cache()
+        U, D = ue.shape
+        I, k = ie.shape[0], K_SLICE
+
+        def serve():
+            return fs.fused_lgcnhs_serve(ue, ie, A, W, seen, k)
+
+        def composition():
+            fused = torch.matmul(ue, ie.T) * torch.matmul(A, W)
+            return torch.topk(fused.masked_fill_(seen, fs.EXCLUDED), k, dim=1)
+
+        ms, comp_ms = median_ms(torch, serve, 3), median_ms(torch, composition, 3)
+        serve_dev = sum(device_ms_by_kernel(serve, 2)[0].values()) or None
+        comp_dev = sum(device_ms_by_kernel(composition, 2)[0].values()) or None
+        nnz = int((A != 0).sum())
+        big_bound = bound(4 * (U * D + I * D + U * I + I * I) + U * I + 8 * U * k,
+                          2 * nnz * I + 2 * U * I * D + U * I)
+        tag = f"catalog_{I}"
+        next(r for r in report if r["name"] == "fused_lgcnhs_serve").update({
+            f"{tag}_ms": ms, f"{tag}_device_ms": serve_dev, f"{tag}_matmul_topk_ms": comp_ms,
+            f"{tag}_matmul_topk_device_ms": comp_dev, f"{tag}_bound_ms": big_bound[0]})
+        print(f"[phase 5] fused_lgcnhs_serve U={U} I={I} D={D} k={k}: {ms:.4f} ms (device "
+              f"{serve_dev}), matmul+topk {comp_ms:.4f} ms (device {comp_dev}), bound "
+              f"{big_bound[0]:.4f} by {big_bound[1]} [{smi}]", flush=True)
+        del W, A, seen
+        torch.cuda.empty_cache()
+
+    check.guard("fused serving timed over 49,410 items", serve_catalog_timing)
+
     # dual_matmul at the training step's shapes: the slice's int8 incidence
     # (padded once per run, as the trainer does) and the bf16 layer-0
     # operands of the trained tables
@@ -1513,6 +1961,9 @@ def main() -> int:
         "bound_share": bound_ms / dual_device_ms if dual_device_ms else None,
     })
     dual_row = report[-1]
+    if phase7:
+        dual_row.update({f"resume_launches_{run}": n
+                         for run, n in phase7["resume_launches"].items()})
     print(f"[phase 5] dual_matmul U={U} I={I} D={D} nnz={nnz} int8/bf16: forward {ms:.4f} ms "
           f"(device {dual_device_ms}, {share} of the bound), backward {bwd_ms:.4f} ms, "
           f"row padding {pad_ms:.4f} ms once per run, twin {plain_ms:.4f}, two bf16 matmuls "
@@ -1563,6 +2014,8 @@ def main() -> int:
 
     for row in report:
         row["cli_main_launches"] = main_launches[row["name"]]
+        if phase7:  # find_lambda, evaluate and ablation launch none
+            row["phase7_launches"] = sum(r["launches"][row["name"]] for r in phase7["runs"])
     # cli/main: host seconds per run and step (phase 4's runs), then where
     # the device stages of SpreadLightGCNOpti go
     for row in main_rows:

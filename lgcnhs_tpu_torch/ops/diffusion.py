@@ -46,13 +46,24 @@ def heats_transfer(A: torch.Tensor, W_gen: torch.Tensor) -> torch.Tensor:
     return W_gen / k_item[:, None]
 
 
+def blend_exponents(lam, dtype: torch.dtype, device) -> tuple:
+    """(1 - l, l) as 0-d tensors of ``dtype``. A Python ``lam`` is taken in
+    ``dtype`` first; a tensor ``lam`` forms ``1 - l`` in its own dtype, as
+    JAX forms ``1.0 - lam`` in the grid's dtype before ``jnp.power``
+    promotes it (an f32 grid over f64 tables, the JAX
+    ``ops/sweep._blended_transfer``)."""
+    if not torch.is_tensor(lam):
+        lam = torch.as_tensor(lam, dtype=dtype)
+    lam = lam.to(device)
+    return (1.0 - lam).to(dtype), lam.to(dtype)
+
+
 def hybrid_transfer(A: torch.Tensor, W_gen: torch.Tensor, lam) -> torch.Tensor:
     """W = W_gen / (k_i^(1-l) (x) k_j^l); l=1 is ProbS, l=0 is HeatS
-    (``model.py:63-85``). ``lam`` is taken in A's dtype, as the JAX callers
-    pass it, so ``1 - lam`` rounds the same way."""
-    lam = torch.as_tensor(lam, dtype=A.dtype, device=A.device)
+    (``model.py:63-85``), the exponents from ``blend_exponents``."""
+    one_minus, lam = blend_exponents(lam, A.dtype, A.device)
     k_item = _item_degrees(A)
-    denom = torch.pow(k_item, 1.0 - lam)[:, None] * torch.pow(k_item, lam)[None, :]
+    denom = torch.pow(k_item, one_minus)[:, None] * torch.pow(k_item, lam)[None, :]
     denom.masked_fill_(denom == 0, 1.0)  # in place: no second (I, I) temporary
     return W_gen / denom
 
@@ -81,12 +92,12 @@ def diffusion_scores(A: torch.Tensor, lam, transpose_w: bool = False) -> torch.T
 
 def _blend_factors(A: torch.Tensor, lam):
     """(A / k_user, k_item^(1-l), k_item^l): the user normalization and the
-    row and column scalings of the HybridS blend, l in A's dtype."""
-    lam = torch.as_tensor(lam, dtype=A.dtype, device=A.device)
+    row and column scalings of the HybridS blend (``blend_exponents``)."""
+    one_minus, lam = blend_exponents(lam, A.dtype, A.device)
     k_user = A.sum(dim=1)
     k_user = torch.where(k_user == 0, torch.ones_like(k_user), k_user)
     k_item = _item_degrees(A)
-    return A / k_user[:, None], torch.pow(k_item, 1.0 - lam), torch.pow(k_item, lam)
+    return A / k_user[:, None], torch.pow(k_item, one_minus), torch.pow(k_item, lam)
 
 
 def blocked_diffusion_scores(

@@ -12,7 +12,11 @@ Port of the single-device branches of ``lgcnhs_tpu/train/trainer.py``
   adjacency over every val edge once, the six-metric-column history from
   layer-0 recommendations with train positives masked;
 - the history saved as CSV (and PNG curves where matplotlib imports), the
-  final tables as an npz checkpoint the JAX trainer's loader reads too.
+  final tables as an npz checkpoint the JAX trainer's loader reads too;
+- with ``checkpoint_dir``, the full state (tables, Adam's moments and step)
+  saved every ``checkpoint_every`` epochs (``train/checkpoint.py``), and a
+  run resumes after the newest checkpoint's epoch with the previous run's
+  history rows before it carried over.
 
 The JAX step is one jitted XLA program; here a step is eager PyTorch, one
 Python call per epoch. Training routes, chosen as JAX chooses
@@ -40,16 +44,15 @@ evaluation ranks in user chunks with CSR masks (``ops/scalable``).
 RNG: torch cannot reproduce ``jax.random``. Each epoch draws from its own
 generator seeded from (seed, epoch) (``epoch_seed``), the counterpart of
 ``fold_in(key, e)``; the val draw at eval epoch e uses (seed, epochs + e).
-The stream does not depend on where a run stopped, and the CSR samplers
-draw the dense samplers' triples.
+The stream does not depend on where a run stopped, so a resumed run draws
+the uninterrupted run's triples, and the CSR samplers draw the dense
+samplers' triples.
 
-Not ported yet, each raising with its ROADMAP pointer: the mesh branch
-(queue 1 item 7) and orbax mid-train resume (item 6). ``--scan-chunk`` has
-no counterpart without jit.
+Not ported yet: the mesh branch, which raises with its ROADMAP pointer
+(queue 1 item 7). ``--scan-chunk`` has no counterpart without jit.
 """
 from __future__ import annotations
 
-import math
 import os
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
@@ -106,6 +109,13 @@ from lgcnhs_tpu_torch.ops.scalable import (
 from lgcnhs_tpu_torch.ops.topk import masked_topk
 from lgcnhs_tpu_torch.runtime.device import resolve_device
 from lgcnhs_tpu_torch.runtime.logging import get_logger, stage_timer
+from lgcnhs_tpu_torch.runtime.table import read_csv, write_csv
+from lgcnhs_tpu_torch.train.checkpoint import (
+    load_optimizer_state,
+    optimizer_state,
+    restore_train_state,
+    save_train_state,
+)
 
 _TABLE_DTYPES = {"float32": torch.float32, "float64": torch.float64,
                  "bfloat16": torch.float32}  # bf16 = mixed precision, f32 tables
@@ -338,18 +348,21 @@ def train_lightgcn(
     item_features: Optional[np.ndarray] = None,
     save_artifacts: bool = True,
     checkpoint_dir: Optional[str] = None,
+    checkpoint_every: int = 0,
     device: torch.device | str = "cuda",
 ) -> TrainResult:
     """Train LightGCN (or LightGCNOpti when features are given) on
     ``device``: the card unless ``device="cpu"`` is asked for (raises
     without CUDA). Returns the final tables (detached, on ``device``) and
-    the per-eval metric history (``train.py:107-177``)."""
+    the per-eval metric history (``train.py:107-177``). With
+    ``checkpoint_dir`` the full training state is saved after every epoch
+    e > 0 with e % ``checkpoint_every`` == 0, and the run resumes after
+    the newest checkpoint found there (``lgcnhs_tpu/train/trainer.py:
+    913-987,1027-1030``)."""
     hp = cfg.hparams
     log = get_logger()
     device = resolve_device(device)
     U, I = graph.n_users, graph.n_items
-    if checkpoint_dir:
-        raise _not_ported("mid-train resume (checkpoint_dir)", 6)
     if tuple(cfg.compute.mesh_shape) != (1, 1):
         raise _not_ported("multi-device training (compute.mesh_shape)", 7)
     if cfg.compute.coo_table_sharding:
@@ -503,11 +516,31 @@ def train_lightgcn(
         train_step = make_train_step(optimizer, hp, I, bf16_matmul=_bf16, use_kernel=_kernel,
                                      neg_hi=neg_hi_train, csr_sampler=not eval_dense)
 
+    start_epoch = 0
+    restored = restore_train_state(checkpoint_dir, device) if checkpoint_dir else None
+    if restored is not None:
+        last, saved, opt_state = restored
+        with torch.no_grad():
+            for table, value in zip(params, saved):
+                if value.shape != table.shape or value.dtype != table.dtype:
+                    raise ValueError(
+                        f"checkpoint in {checkpoint_dir} holds a {tuple(value.shape)} "
+                        f"{value.dtype} table where this run trains {tuple(table.shape)} "
+                        f"{table.dtype}")
+                table.copy_(value)
+        load_optimizer_state(optimizer, params, opt_state)
+        start_epoch = last + 1
+        log.info("resumed from checkpoint at epoch %d", last)
+
     history: Dict[str, List[float]] = {name: [] for name in HISTORY_COLUMNS}
+    if start_epoch > 0 and save_artifacts:
+        _carry_history(cfg, model_name, history, start_epoch)
     with stage_timer(f"{model_name} training done ({hp.epochs} epochs)", log):
-        for epoch in range(hp.epochs):
+        for epoch in range(start_epoch, hp.epochs):
             loss = train_step(params, epoch, epoch_generator(hp.seed, epoch, device),
                               graph_op, edge_users, edge_items, rejection)
+            if checkpoint_dir and checkpoint_every and epoch and epoch % checkpoint_every == 0:
+                save_train_state(checkpoint_dir, epoch, params, optimizer_state(optimizer, params))
             if epoch % hp.epoch_per_eval != 0:
                 continue
             vloss = val_loss(params, epoch_generator(hp.seed, hp.epochs + epoch, device))
@@ -554,31 +587,35 @@ def load_checkpoint(path: str, device: torch.device | str = "cpu") -> Optional[L
         )
 
 
-def _csv_cell(v) -> str:
-    """One value as pandas' ``to_csv`` writes it: ints plainly, floats by
-    their shortest repr, NaN as an empty field."""
-    if isinstance(v, (int, np.integer)) and not isinstance(v, bool):
-        return str(int(v))
-    v = float(v)
-    return "" if math.isnan(v) else repr(v)
+def _history_path(cfg: Config, model_name: str) -> str:
+    return os.path.join(cfg.pictures_path, f"{model_name}_{cfg.k}_val_metrics.csv")
 
 
-def history_csv(history: Dict[str, List[float]]) -> str:
-    """The history table as ``pd.DataFrame(history).to_csv(index=False)``
-    writes it (the reference's ``train.py:190-196``), without pandas."""
-    names = list(history)
-    lines = [",".join(names)]
-    for row in zip(*(history[n] for n in names)):
-        lines.append(",".join(_csv_cell(v) for v in row))
-    return "\n".join(lines) + "\n"
+def _carry_history(cfg: Config, model_name: str, history: Dict[str, List[float]],
+                   start_epoch: int) -> None:
+    """On resume, the previous run's history rows with ``iters`` before
+    ``start_epoch`` (``lgcnhs_tpu/train/trainer.py:963-986``), so the saved
+    table covers the whole run; this run recomputes the rest. A missing file
+    carries nothing; an unreadable one is logged and does not stop training."""
+    path = _history_path(cfg, model_name)
+    if not os.path.exists(path):
+        return
+    try:
+        prior = read_csv(path)
+        keep = [j for j, it in enumerate(prior["iters"]) if it < start_epoch]
+        for name in history:
+            if name in prior:
+                history[name] = [prior[name][j] for j in keep]
+        get_logger().info("resume: carried %d prior metric rows from %s", len(keep), path)
+    except Exception as exc:  # a corrupt CSV must not stop training
+        get_logger().warning("resume: could not carry prior history: %s", exc)
 
 
 def _save_history(cfg: Config, model_name: str, history: Dict[str, List[float]]) -> None:
-    """CSV, and the metric curve PNGs where matplotlib imports
-    (``train.py:190-221``)."""
+    """CSV (``runtime/table``, byte-identical to pandas'), and the metric
+    curve PNGs where matplotlib imports (``train.py:190-221``)."""
     base = os.path.join(cfg.pictures_path, f"{model_name}_{cfg.k}")
-    with open(base + "_val_metrics.csv", "w", newline="") as f:
-        f.write(history_csv(history))
+    write_csv(_history_path(cfg, model_name), history)
     try:
         import matplotlib
 

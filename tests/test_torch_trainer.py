@@ -26,6 +26,7 @@ from lgcnhs_tpu_torch import config as tcfg
 from lgcnhs_tpu_torch.data import graph as tgraph
 from lgcnhs_tpu_torch.models import lightgcn as tlgcn
 from lgcnhs_tpu_torch.ops import metrics_ops as tmet
+from lgcnhs_tpu_torch.runtime import table as ttable
 from lgcnhs_tpu_torch.train import trainer as ttrainer
 
 U, I, D = 40, 60, 8
@@ -297,7 +298,7 @@ def test_history_csv_is_byte_identical_to_pandas(tmp_path):
         got = f.read()
     assert got == want
     empty = {name: [] for name in ttrainer.HISTORY_COLUMNS}
-    assert ttrainer.history_csv(empty) == ",".join(ttrainer.HISTORY_COLUMNS) + "\n"
+    assert ttable.to_csv(empty) == ",".join(ttrainer.HISTORY_COLUMNS) + "\n"
 
 
 # -- dispatch rules ------------------------------------------------------------------------
@@ -316,13 +317,9 @@ def test_choose_propagation_matches_jax():
 def test_unported_branches_raise_with_roadmap_pointers():
     _, tg = _graph_pair(7)
     base = tcfg.load_config(dataset="synthetic", overrides={"hparams.epochs": 1})
-    cases = [
-        (base.replace(compute=base.compute.__class__(mesh_shape=(2, 1))), {}, "item 7"),
-        (base, {"checkpoint_dir": "ckpt"}, "item 6"),
-    ]
-    for cfg, kw, pointer in cases:
-        with pytest.raises(NotImplementedError, match=pointer):
-            ttrainer.train_lightgcn(tg, cfg, save_artifacts=False, device="cpu", **kw)
+    cfg = base.replace(compute=base.compute.__class__(mesh_shape=(2, 1)))
+    with pytest.raises(NotImplementedError, match="item 7"):
+        ttrainer.train_lightgcn(tg, cfg, save_artifacts=False, device="cpu")
 
 
 def test_training_defaults_to_the_card(monkeypatch):
