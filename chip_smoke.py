@@ -117,6 +117,30 @@ neither JAX nor ``lgcnhs_tpu``. Phases:
    grid point split into diffusion, ranking and metrics, the resume's save
    and restore ms. Phase 5 also times fused serving over the 49,410-item
    catalog beside matmul+topk on the same inputs.
+8. Raw-data ingestion (``ingestion_phase``, after phase 6), on seeded
+   directories in each distribution's file schema
+   (``lgcnhs_tpu_torch/data/raw_standins.py``):
+   (a) ML-100K at its size (943 x 1682, 100,000 ratings; latin-1 titles,
+   missing dates, quoted titles): the native graph builder built and its
+   parse equal to the reader's; ingestion on the card against the same code
+   on the CPU (splits, id mappings and the non-text feature columns
+   identical, the text columns trained); word2vec on the card within
+   ``W2V_ATOL`` of the CPU under one injected negative stream, two card runs
+   with the card's own draws bitwise equal; ``cli/main --data-dir --env prod
+   --epochs 300`` for LightGCNOpti (trains through ``dual_matmul``,
+   recommends through ``fused_topk_retrieval``; ``--target-user`` by raw id)
+   and SpreadLightGCNOpti, then ``cli/retrieve --decode`` for
+   SpreadLightGCNOpti (``fused_lgcnhs_serve``; its raw-id JSON checked);
+   (b) phase 4's ML-1M stand-in written as ``.dat`` files: ingested (the
+   native parser used) with splits identical to the synthetic tier's, then
+   ``cli/main`` LightGCNOpti; (c) Douban (``DOUBAN_SIZE``, the preset's
+   quantile band; storylines that train word2vec thousands of steps):
+   ingested, word2vec checked as in (a), ``cli/main`` LightGCNOpti. Launch
+   counts set to 0 before each run and read after; every list held against
+   the CPU run (identical or tie-equivalent) and its metrics by phase 4's
+   rule. Host seconds of each ingestion part (parse, ratings, features,
+   word2vec with its steps and ms a step on the card), each ``cli/main``
+   run's Step 1-3 seconds and peak device memory.
 
 Prints one PASS/FAIL line per check, then (all passed) the kernel JSON line,
 the ``nvidia-smi`` name/power-limit line, and the final
@@ -190,6 +214,24 @@ LARGE_DUAL_REL_TOL = 1e-4
 RESUME_EPOCHS, RESUME_STOP, RESUME_EVERY, RESUME_EVAL_EVERY = 40, 21, 20, 10
 RESUME_TABLE_TOL = 1e-3
 RESUME_HISTORY_TOL = 1e-4
+# phase 8, raw-data ingestion: cli/main trains LightGCNOpti this many prod
+# epochs on each ingested dataset
+INGEST_EPOCHS = 300
+# word2vec on the card against the CPU under one injected negative stream:
+# f32 sums in another order, the CPU tests' tolerance against JAX (1.8e-6
+# measured there at dim 20; 3e-7 to 7e-7 on an H100 over this phase's corpora)
+W2V_ATOL = 1e-5
+# the retrieval kernel's launches inside ops/scalable.chunked_masked_topk,
+# counted apart from its other launches (phases 6 and 8)
+CHUNKED = "fused_topk_retrieval@chunked_masked_topk"
+W2V_STORY_DOCS = 300  # the CPU side of the storyline check trains on these
+# Douban: 160,000 users at 6.5 ratings each, the ratio of the public dump
+# (~4.2 M ratings by ~640,000 users); the preset keeps the users whose rating
+# counts lie between the counts' 0.99 and 0.991 quantiles, a few hundred here.
+# Storylines of 80 words over 2000 movies and the nicknames give word2vec
+# ~7000 steps.
+DOUBAN_SIZE = {"n_users": 160_000, "n_movies": 2_000, "n_ratings": 1_040_000,
+               "story_words": 80}
 
 
 class Checks:
@@ -1001,6 +1043,380 @@ def lambda_resume_report_phase(check, dev, smi, env):
     check(f"ablation: {want_charts} chart (matplotlib {'present' if want_charts else 'absent'})",
           len(charts) == want_charts, f"{charts}")
     logging.getLogger("lgcnhs").removeHandler(keep)
+    return out
+
+
+class PartTimer:
+    """Host seconds of each ingestion part, by wrapping the names the
+    dataset modules call while it is active: parse, ratings (filter, remap,
+    split and the CSV artifacts), features (the tables, word2vec included)
+    and word2vec (its plan on the host apart from its steps on the device;
+    the vectors' copy to the host ends each call, so the card is done)."""
+
+    def __init__(self, parts):
+        self.parts = parts  # {part: [(module, attribute), ...]}
+        self.seconds = dict.fromkeys(parts, 0.0)
+        self.steps = []  # (steps, seconds) of each word2vec call
+
+    def _wrap(self, part, fn):
+        def call(*a, **kw):
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            dt = time.perf_counter() - t0
+            self.seconds[part] += dt
+            if part == "word2vec_plan":
+                self.steps.append([out.n_steps, -dt])
+            elif part == "word2vec" and self.steps:
+                self.steps[-1][1] += dt
+            return out
+        return call
+
+    def __enter__(self):
+        self.saved = []
+        for part, names in self.parts.items():
+            for module, attr in names:
+                self.saved.append((module, attr, getattr(module, attr)))
+                setattr(module, attr, self._wrap(part, getattr(module, attr)))
+        return self
+
+    def __exit__(self, *exc):
+        for module, attr, fn in reversed(self.saved):
+            setattr(module, attr, fn)
+        return False
+
+    def row(self):
+        steps = sum(n for n, _ in self.steps)
+        step_s = sum(s for _, s in self.steps)
+        return {**{k: v for k, v in self.seconds.items() if k != "word2vec_plan"},
+                "word2vec_host_s": self.seconds["word2vec_plan"],
+                "word2vec_steps": steps,
+                "word2vec_ms_per_step": step_s * 1e3 / steps if steps else None}
+
+
+def ingestion_phase(check, dev, smi, clock):
+    """Phase 8: raw files through ``--data-dir`` on the card (module
+    docstring). Returns the launches of its main-path runs by kernel and its
+    rows."""
+    import numpy as np
+    import torch
+
+    from lgcnhs_tpu_torch import config as tcfg
+    from lgcnhs_tpu_torch.cli import main as cli_main
+    from lgcnhs_tpu_torch.cli import retrieve
+    from lgcnhs_tpu_torch.data import douban as tdb
+    from lgcnhs_tpu_torch.data import features as tf
+    from lgcnhs_tpu_torch.data import movielens as tml
+    from lgcnhs_tpu_torch.data import movielens1m as tm1
+    from lgcnhs_tpu_torch.data import word2vec as tw
+    from lgcnhs_tpu_torch.data.datasets import load_dataset
+    from lgcnhs_tpu_torch.data.fetch import douban_paths, ml100k_paths, ml1m_paths
+    from lgcnhs_tpu_torch.data.graph import build_graph, interaction_matrix, pos_bool_matrix
+    from lgcnhs_tpu_torch.data.idmap import IdMapper
+    from lgcnhs_tpu_torch.data.synthetic import synthesize_movielens_like
+    from lgcnhs_tpu_torch.eval import metrics as tev
+    from lgcnhs_tpu_torch.models import recommenders
+    from lgcnhs_tpu_torch.models.recommenders import checkpoint_path, recommend
+    from lgcnhs_tpu_torch.native import bindings as native
+    from lgcnhs_tpu_torch.ops import diffusion as tdiff
+    from lgcnhs_tpu_torch.ops.cuda import fusion_serve as fs
+    from lgcnhs_tpu_torch.ops.cuda import propagation as prop
+    from lgcnhs_tpu_torch.ops.cuda import retrieval as rt
+    from lgcnhs_tpu_torch.ops.topk import MASK_VALUE
+    from lgcnhs_tpu_torch.runtime.table import as_str, read_table
+    from lgcnhs_tpu_torch.train import trainer
+    from lgcnhs_tpu_torch.train.trainer import load_checkpoint
+    from lgcnhs_tpu_torch.data.raw_standins import write_douban, write_ml100k, write_ml1m
+
+    kernels = {"dual_matmul": prop.dual_matmul, "fused_topk_retrieval": rt.fused_topk_retrieval,
+               "fused_lgcnhs_serve": fs.fused_lgcnhs_serve}
+    os.makedirs(os.path.join(ROOT, "artifacts"), exist_ok=True)
+    work = tempfile.mkdtemp(prefix="chip_smoke_ingest_", dir=os.path.join(ROOT, "artifacts"))
+    out = {"launches": dict.fromkeys([*kernels, CHUNKED], 0), "ingest": [], "runs": []}
+    modules = {"movielens": tml, "movielens1m": tm1, "douban": tdb}
+    parts = {
+        "parse": [(tml, "read_movielens_raw"), (tm1, "read_movielens1m_raw"),
+                  (tdb, "read_table")],
+        "ratings": [(m, "prepare_ratings") for m in modules.values()],
+        "features": [(tml, "movielens_user_features"), (tml, "movielens_item_features"),
+                     (tm1, "ml1m_user_features"), (tm1, "ml1m_item_features"),
+                     (tdb, "douban_user_features"), (tdb, "douban_item_features")],
+        "align_and_feature_csvs": [(m, "align_and_save") for m in modules.values()],
+        "word2vec_plan": [(tw, "plan")],
+        "word2vec": [(tw, "train_word2vec")],
+    }
+    paths_of = {"movielens": ml100k_paths, "movielens1m": ml1m_paths, "douban": douban_paths}
+    prepare = {"movielens": tml.prepare_movielens, "movielens1m": tm1.prepare_movielens1m,
+               "douban": tdb.prepare_douban}
+
+    def run_of(args):
+        """(dataset, data dir, workdir) of a cli run's arguments."""
+        return tuple(args[args.index(flag) + 1]
+                     for flag in ("--dataset", "--data-dir", "--workdir"))
+
+    def cfg_for(dataset, data_dir, workdir, model="LightGCNOpti"):
+        return tcfg.load_config(env="prod", dataset=dataset, model=model, workdir=workdir,
+                                overrides={"preprocessing.dataset_paths": paths_of[dataset](
+                                    data_dir), "hparams.epochs": INGEST_EPOCHS})
+
+    def same_splits(a, b):
+        return a.uid_mapping == b.uid_mapping and a.iid_mapping == b.iid_mapping and all(
+            list(getattr(a, s)) == list(getattr(b, s)) and all(
+                np.array_equal(getattr(a, s)[c], getattr(b, s)[c]) for c in getattr(a, s))
+            for s in ("rating", "train", "val", "test"))
+
+    def ingest(label, dataset, data_dir):
+        """The pipeline on the card, timed by part, then on the CPU with its
+        text columns marked NaN: splits, mappings and the other feature
+        columns identical, the card's text columns finite and trained."""
+        cfg = cfg_for(dataset, data_dir, os.path.join(work, label))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with PartTimer(parts) as timer:
+            splits, uf, itf = prepare[dataset](cfg, cfg.preprocess_path, dev)
+        total = time.perf_counter() - t0
+        row = {"run": label, "host_s": total, **timer.row(), "n_users": splits.n_users,
+               "n_items": splits.n_items, "n_ratings": len(splits.rating["user_id"])}
+        out["ingest"].append(row)
+        print(f"[phase 8] ingest {label}: {json.dumps(row)} [{smi}]", flush=True)
+        saved = modules[dataset].text_embeddings
+        modules[dataset].text_embeddings = (
+            lambda docs, dim, *a, **kw: np.full((len(docs), dim), np.nan, np.float32))
+        try:
+            splits_h, uf_h, itf_h = prepare[dataset](cfg, None, "cpu")
+        finally:
+            modules[dataset].text_embeddings = saved
+        text_u, text_i = np.isnan(uf_h).any(axis=0), np.isnan(itf_h).any(axis=0)
+        check(f"ingest {label}: splits and id mappings on the card identical to the CPU's",
+              same_splits(splits, splits_h))
+        check(f"ingest {label}: non-text features identical to the CPU's, text trained",
+              np.array_equal(uf[:, ~text_u], uf_h[:, ~text_u])
+              and np.array_equal(itf[:, ~text_i], itf_h[:, ~text_i])
+              and bool(np.isfinite(uf).all() and np.isfinite(itf).all())
+              and bool(np.abs(itf[:, text_i]).sum() > 0),
+              f"user {uf.shape}, item {itf.shape}, text columns {int(text_u.sum())} user, "
+              f"{int(text_i.sum())} item")
+        return splits
+
+    def w2v_check(label, texts, dim):
+        """Card vs CPU word2vec with one injected negative stream; and two
+        card runs with the card's own draws bitwise equal."""
+        docs = [tf.preprocess_text(t) for t in texts]
+        p = tw.plan(docs, dim)
+        if p.n_steps == 0:
+            return
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        noise = torch.from_numpy(p.freq ** 0.75).to(dev, torch.float32)
+        negs = torch.multinomial(noise, p.n_steps * 1024 * 5, replacement=True,
+                                 generator=gen).view(p.n_steps, 1024, 5).cpu().numpy()
+        card = tw.train_word2vec(docs, dim, device=dev, negatives=negs)
+        cpu = tw.train_word2vec(docs, dim, device="cpu", negatives=negs)
+        gap = float(np.abs(card.vectors - cpu.vectors).max())
+        again = [tw.train_word2vec(docs, dim, device=dev).vectors for _ in range(2)]
+        check(f"word2vec {label} ({p.n_steps} steps, V={len(p.vocab)}, dim {dim}): the card "
+              f"within {W2V_ATOL} of the CPU under one negative stream",
+              gap <= W2V_ATOL, f"max gap {gap:.3e}, vectors up to "
+              f"{float(np.abs(cpu.vectors).max()):.4f}")
+        check(f"word2vec {label}: two card runs with the card's own draws bitwise equal",
+              np.array_equal(*again))
+        out.setdefault("w2v_gaps", {})[label] = gap
+
+    def ref64(model, cfg, g):
+        """(U, I) f64 scores on the card: masked layer-0 scores, or the
+        fused G * F."""
+        seen = torch.from_numpy(pos_bool_matrix(g.n_users, g.n_items, g.train, g.val)).to(dev)
+        params = load_checkpoint(checkpoint_path(cfg), dev)
+        ue, ie = params.user_emb.double(), params.item_emb.double()
+        G = torch.where(seen, torch.full((g.n_users, g.n_items), MASK_VALUE, dtype=torch.float64,
+                                         device=dev), ue @ ie.T)
+        if model == "LightGCNOpti":
+            return G
+        A = torch.from_numpy(interaction_matrix(g.n_users, g.n_items, g.train, g.val,
+                                                dtype=np.float64)).to(dev)
+        F = tdiff.diffusion_scores(A, torch.tensor(cfg.hparams.lambda_,
+                                                   dtype=torch.float32).double())
+        return F * G
+
+    log_lines = []
+
+    class Keep(logging.Handler):
+        def emit(self, record):
+            log_lines.append(record.getMessage())
+
+    keep = Keep(logging.INFO)
+    logging.getLogger("lgcnhs").addHandler(keep)
+
+    def counted_run(run):
+        """run() with every launch count set to 0 just before and read just
+        after; retrieval launches made inside ``chunked_masked_topk`` (the
+        trainer's CSR evaluation, ``recommend_gcn``'s chunked branch) are
+        counted apart, under ``CHUNKED``, as phase 6 counts them."""
+        for fn in kernels.values():
+            fn.launches = 0
+        chunked = [0]
+        saved = [(m, m.chunked_masked_topk) for m in (trainer, recommenders)]
+
+        def wrap(topk):
+            def call(*a, **kw):
+                before = rt.fused_topk_retrieval.launches
+                try:
+                    return topk(*a, **kw)
+                finally:
+                    chunked[0] += rt.fused_topk_retrieval.launches - before
+            return call
+
+        for m, topk in saved:
+            m.chunked_masked_topk = wrap(topk)
+        try:
+            result = run()
+        finally:
+            for m, topk in saved:
+                m.chunked_masked_topk = topk
+        counted = {name: fn.launches for name, fn in kernels.items()}
+        counted["fused_topk_retrieval"] -= chunked[0]
+        counted[CHUNKED] = chunked[0]
+        for name, n in counted.items():
+            out["launches"][name] += n
+        return result, counted
+
+    def main_run(label, model, args, want, g, target=None):
+        """cli/main on the card, its launches counted (``counted_run``);
+        Step 1-3 seconds; the list and metrics held against the CPU."""
+        clock.marks.clear()
+        log_lines.clear()
+        torch.cuda.reset_peak_memory_stats()
+        t_wall, t0 = time.time(), time.perf_counter()
+        extra = ["--target-user", str(target)] if target is not None else []
+        want = {**want, CHUNKED: False}  # these graphs fit the dense budget: no chunks
+        metrics, counted = counted_run(
+            lambda: cli_main.main(["--device", "cuda", "--model", model, *args, *extra]))
+        host_s = time.perf_counter() - t0
+        m = clock.marks
+        row = {"run": label, "host_s": host_s, "step1_s": m["step2"] - t_wall,
+               "step2_s": m["step3"] - m["step2"], "step3_s": m["end"] - m["step3"],
+               "peak_device_gb": torch.cuda.max_memory_allocated() / 1e9, "launches": counted,
+               "metrics": metrics}
+        out["runs"].append(row)
+        print(f"[phase 8] cli/main {label}: {json.dumps(row)} [{smi}]", flush=True)
+        check(f"cli/main {label}: launches {want}",
+              all((counted[k] > 0) == v for k, v in want.items()), f"{counted}")
+        cfg = cfg_for(*run_of(args), model=model)
+        rec = np.load(os.path.join(cfg.recommend_path, f"all_user_recommend_{model}_{cfg.k}.npy"))
+        want_rec = recommend(g, cfg, "cpu")
+        agreement, gap = tie_equivalence(torch, torch.from_numpy(want_rec).to(dev),
+                                         torch.from_numpy(rec).to(dev), ref64(model, cfg, g))
+        check(f"cli/main {label}: the list identical to the CPU run's, or tie-equivalent "
+              "under f64", agreement == 1.0 or (agreement >= AGREEMENT_MIN and gap <= GAP_MAX),
+              f"agreement {agreement:.6f}, gap {gap:.3e}")
+        ctx_card = tev.EvalContext.build(g.n_users, g.n_items, g.test, g.train, g.val, dev)
+        ctx_cpu = tev.EvalContext.build(g.n_users, g.n_items, g.test, g.train, g.val, "cpu")
+        bad = metrics_disagree(metrics, unrounded(ctx_card, rec, False),
+                               unrounded(ctx_cpu, rec, False))
+        check(f"cli/main {label}: metrics equal the CPU's", not bad, f"disagree on {bad}")
+        return rec
+
+    try:
+        # (a) ML-100K at the distribution's size
+        t0 = time.perf_counter()
+        d_a = write_ml100k(os.path.join(work, "ml-100k"), seed=SEED)
+        print(f"[phase 8] (a) wrote ML-100K in {time.perf_counter() - t0:.2f} s", flush=True)
+        check("native graph builder built on this machine", native.available())
+        parsed = native.parse_rating_rows(d_a["rating"], "\t")
+        ref = read_table(d_a["rating"], sep="\t", names=["u", "i", "r", "t"])
+        check("native parse of u.data equals the reader's",
+              parsed is not None and all(np.array_equal(p, ref[c])
+                                         for p, c in zip(parsed, ref)))
+        data_a = os.path.dirname(d_a["rating"])
+        splits_a = ingest("ml100k", "movielens", data_a)
+        titles = as_str(read_table(d_a["items"], sep="|", encoding="iso-8859-1",
+                                   names=tml.ITEM_COLUMNS)["movie_title"])
+        w2v_check("ml100k titles", titles, 5)
+        g_a = build_graph(splits_a)
+        args_a = ["--dataset", "movielens", "--data-dir", data_a, "--env", "prod",
+                  "--epochs", str(INGEST_EPOCHS), "--workdir", os.path.join(work, "wa")]
+        raw_user = list(splits_a.uid_mapping)[5]
+        rec = main_run("ml100k LightGCNOpti (trains)", "LightGCNOpti", args_a,
+                       {"dual_matmul": True, "fused_topk_retrieval": True,
+                        "fused_lgcnhs_serve": False}, g_a, target=raw_user)
+        mapper = IdMapper.from_splits(splits_a)
+        line = (f"recommendations for user {raw_user} (internal 5): internal "
+                f"{rec[5].tolist()}, raw {[mapper.internal_to_iid[i] for i in rec[5]]}")
+        check("cli/main --target-user by raw id logs the decoded list", line in log_lines)
+        main_run("ml100k SpreadLightGCNOpti", "SpreadLightGCNOpti", args_a,
+                 dict.fromkeys(kernels, False), g_a)
+        t0 = time.perf_counter()
+        served, counted = counted_run(lambda: retrieve.main(
+            ["--device", "cuda", "--model", "SpreadLightGCNOpti", "--decode", *args_a]))
+        out["runs"].append({"run": "ml100k cli/retrieve --decode SpreadLightGCNOpti",
+                            "host_s": time.perf_counter() - t0, "launches": counted})
+        check("cli/retrieve --decode SpreadLightGCNOpti served through fused_lgcnhs_serve",
+              counted == {"dual_matmul": 0, "fused_topk_retrieval": 0, "fused_lgcnhs_serve": 1,
+                          CHUNKED: 0},
+              f"{counted}")
+        cfg_s = cfg_for(*run_of(args_a), model="SpreadLightGCNOpti")
+        with open(os.path.join(cfg_s.recommend_path,
+                               f"retrieval_SpreadLightGCNOpti_{cfg_s.k}.json")) as f:
+            decoded = json.load(f)
+        check("cli/retrieve --decode writes every user's list in raw ids",
+              decoded == {str(mapper.internal_to_uid[u]): [str(mapper.internal_to_iid[i])
+                                                           for i in served[u]]
+                          for u in range(g_a.n_users)})
+        from lgcnhs_tpu_torch.models.fusion import serve_fused
+        plain = serve_fused(g_a, cfg_s, load_checkpoint(checkpoint_path(cfg_s), dev),
+                            exact=True)
+        agreement, gap = tie_equivalence(torch, torch.from_numpy(plain).to(dev),
+                                         torch.from_numpy(served).to(dev),
+                                         ref64("SpreadLightGCNOpti", cfg_s, g_a))
+        check("cli/retrieve SpreadLightGCNOpti on ML-100K: tie-equivalent to the plain chain",
+              agreement >= AGREEMENT_MIN and gap <= GAP_MAX,
+              f"agreement {agreement:.6f}, gap {gap:.3e}")
+
+        # (b) ML-1M: phase 4's stand-in written as .dat files
+        cfg_syn = tcfg.load_config(env="prod", dataset="movielens1m", model="LightGCNOpti",
+                                   workdir=os.path.join(work, "syn"))
+        table = synthesize_movielens_like(cfg_syn.synthetic_users, cfg_syn.synthetic_items,
+                                          cfg_syn.synthetic_interactions,
+                                          seed=cfg_syn.preprocessing.seed)
+        t0 = time.perf_counter()
+        d_b = write_ml1m(os.path.join(work, "ml-1m"), table, seed=SEED)
+        print(f"[phase 8] (b) wrote ML-1M ({len(table['user'])} ratings) in "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+        native_calls = []
+        parse = native.parse_rating_rows
+        native.parse_rating_rows = lambda *a: native_calls.append(a) or parse(*a)
+        try:
+            splits_b = ingest("ml1m", "movielens1m", os.path.dirname(d_b["rating"]))
+        finally:
+            native.parse_rating_rows = parse
+        check("ML-1M ratings.dat parsed by the native library (card and CPU ingestion)",
+              len(native_calls) == 2, f"{len(native_calls)} calls")
+        check("ML-1M splits from the raw files identical to the synthetic tier's",
+              same_splits(splits_b, load_dataset(cfg_syn, dev)[0]))
+        args_b = ["--dataset", "movielens1m", "--data-dir", os.path.dirname(d_b["rating"]),
+                  "--env", "prod", "--epochs", str(INGEST_EPOCHS),
+                  "--workdir", os.path.join(work, "wb")]
+        main_run("ml1m LightGCNOpti (trains)", "LightGCNOpti", args_b,
+                 {"dual_matmul": True, "fused_topk_retrieval": True, "fused_lgcnhs_serve": False},
+                 build_graph(splits_b))
+
+        # (c) Douban with long storylines
+        t0 = time.perf_counter()
+        d_c = write_douban(os.path.join(work, "douban"), **DOUBAN_SIZE, seed=SEED)
+        print(f"[phase 8] (c) wrote Douban {DOUBAN_SIZE} in {time.perf_counter() - t0:.2f} s",
+              flush=True)
+        data_c = os.path.dirname(d_c["rating"])
+        splits_c = ingest("douban", "douban", data_c)
+        movies = read_table(d_c["items"])
+        w2v_check("douban names", as_str(movies["NAME"]), 3)
+        w2v_check(f"douban storylines (first {W2V_STORY_DOCS} movies)",
+                  as_str(movies["STORYLINE"])[:W2V_STORY_DOCS], 20)
+        args_c = ["--dataset", "douban", "--data-dir", data_c, "--env", "prod",
+                  "--epochs", str(INGEST_EPOCHS), "--workdir", os.path.join(work, "wc")]
+        main_run("douban LightGCNOpti (trains)", "LightGCNOpti", args_c,
+                 {"dual_matmul": True, "fused_topk_retrieval": True, "fused_lgcnhs_serve": False},
+                 build_graph(splits_c))
+    finally:
+        logging.getLogger("lgcnhs").removeHandler(keep)
+        shutil.rmtree(work, ignore_errors=True)
     return out
 
 
@@ -2077,7 +2493,7 @@ def main() -> int:
     if large:
         c, d = large["chunk"], large["dual"]
         report.append({
-            "name": "fused_topk_retrieval@chunked_masked_topk", "route": "cuda",
+            "name": CHUNKED, "route": "cuda",
             "source": "lgcnhs_tpu_torch/ops/cuda/retrieval.cu",
             "replaces": "lgcnhs_tpu/ops/pallas/retrieval.py:110",
             "call_site": "lgcnhs_tpu/ops/scalable.py:151",
@@ -2091,6 +2507,20 @@ def main() -> int:
                         large_graph_max_rel_err=d["max_rel_err"], large_graph_shape=d["shape"])
         print(f"[phase 6] rows {json.dumps(large['runs'] + [large['main_row']])}", flush=True)
         print(f"[phase 6] COO vs dense at ML-1M {json.dumps(large['coo_vs_dense'])}", flush=True)
+
+    # -- 8. raw-data ingestion through --data-dir --------------------------
+    print(f"[phase 8] ingestion: ML-100K, ML-1M and Douban files on {smi}", flush=True)
+    t0 = time.perf_counter()
+    phase8 = check.guard("ingestion", ingestion_phase, check, dev, smi, clock)
+    if phase8:
+        print(f"[phase 8] {time.perf_counter() - t0:.1f} s; launches {phase8['launches']}; "
+              f"word2vec gaps {json.dumps(phase8['w2v_gaps'])}", flush=True)
+        print(f"[phase 8] rows {json.dumps(phase8['ingest'] + phase8['runs'])}", flush=True)
+        for row in report:
+            row["phase8_launches"] = phase8["launches"][row["name"]]
+        for name, n in phase8["launches"].items():
+            if name != CHUNKED:
+                check(f"phase 8 launched {name} on ingested data", n > 0, f"{n} launches")
 
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
     if check.failures:

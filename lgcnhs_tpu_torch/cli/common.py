@@ -3,17 +3,20 @@ assembly.
 
 Port of ``base_parser``, ``config_from_args`` and ``load_pipeline`` in
 ``lgcnhs_tpu/cli/common.py``. ``--device`` picks the card (default) or the
-CPU; ``--no-cache`` makes ``cli/main`` ignore its cached lists
+CPU, for the run and for ingestion's text embedder; ``--data-dir`` points
+at a directory of raw dataset files (ingested by ``data/datasets.py``),
+``--fetch`` downloads ML-100K / ML-1M there when asked (``data/fetch.py``);
+``--no-cache`` makes ``cli/main`` ignore its cached lists
 (``runtime/cache.ArtifactCache``). Flags left out, and why:
 
 - ``--platform``, ``--profile``, ``--scan-chunk``: JAX-only (the platform
   pin, ``jax.profiler``, the ``lax.scan`` chunking);
-- ``--mesh``, ``--coo-table-sharding``: the mesh is ROADMAP queue 1 item 7;
-- ``--data-dir``, ``--fetch``: raw-data ingestion is ROADMAP queue 1 item 5.
+- ``--mesh``, ``--coo-table-sharding``: the mesh is ROADMAP queue 1 item 7.
 """
 from __future__ import annotations
 
 import argparse
+import os
 
 import torch
 
@@ -37,6 +40,20 @@ def base_parser(description: str) -> argparse.ArgumentParser:
     p.add_argument("--items", type=int, default=None, help="synthetic item count")
     p.add_argument(
         "--interactions", type=int, default=None, help="synthetic interaction count"
+    )
+    p.add_argument(
+        "--data-dir",
+        default=None,
+        metavar="DIR",
+        help="directory holding the raw dataset files (e.g. an extracted "
+        "ml-100k/); sets preprocessing.dataset_paths",
+    )
+    p.add_argument(
+        "--fetch",
+        action="store_true",
+        help="opt-in: download the dataset (ML-100K ~5 MB / ML-1M ~6 MB, "
+        "files.grouplens.org, md5-verified) into <workdir>/data when the raw "
+        "files are absent; logged no-op without network egress",
     )
     p.add_argument(
         "--quantile",
@@ -99,6 +116,21 @@ def config_from_args(args: argparse.Namespace) -> Config:
     if args.quantile is not None:
         overrides["preprocessing.quantile_start"] = args.quantile[0]
         overrides["preprocessing.quantile_end"] = args.quantile[1]
+    if args.data_dir:
+        from lgcnhs_tpu_torch.data.fetch import douban_paths, ml100k_paths, ml1m_paths
+
+        path_fn = {
+            "movielens1m": ml1m_paths,
+            "douban": douban_paths,
+        }.get(args.dataset, ml100k_paths)
+        overrides["preprocessing.dataset_paths"] = path_fn(args.data_dir)
+    elif args.fetch and args.dataset in ("movielens", "movielens1m"):
+        from lgcnhs_tpu_torch.data.fetch import fetch_ml100k, fetch_ml1m
+
+        fetch_fn = fetch_ml1m if args.dataset == "movielens1m" else fetch_ml100k
+        paths = fetch_fn(os.path.join(args.workdir, "data"))
+        if paths is not None:
+            overrides["preprocessing.dataset_paths"] = paths
     cfg = load_config(
         env=args.env,
         dataset=args.dataset,
@@ -110,11 +142,13 @@ def config_from_args(args: argparse.Namespace) -> Config:
     return cfg
 
 
-def load_pipeline(cfg: Config):
+def load_pipeline(cfg: Config, device="cuda"):
     """Dataset -> (graph arrays, user features, item features, splits), with
-    the JAX package's shape log line (reference ``main.py:47-58``)."""
+    the JAX package's shape log line (reference ``main.py:47-58``).
+    ``splits`` carries the raw<->internal id mappings for external-id decode;
+    ``device`` trains ingestion's text embedder."""
     log = get_logger("lgcnhs", cfg.log_path)
-    splits, user_features, item_features = load_dataset(cfg)
+    splits, user_features, item_features = load_dataset(cfg, device)
     graph = build_graph(splits)
     log.info(
         "users: %d, items: %d | train %s val %s test %s | user_features %s item_features %s",

@@ -39,7 +39,7 @@ def main(argv=None) -> dict:
     cfg = config_from_args(args)
     log = get_logger("lgcnhs", cfg.log_path)
 
-    graph, _, _, _ = load_pipeline(cfg)
+    graph, _, _, _ = load_pipeline(cfg, device)
     cache = ArtifactCache(cfg.recommend_path)
     # k-independent: built once for every (k, model) pair (the reference
     # rebuilds it per pair, evaluationMetrics.py:63-69)

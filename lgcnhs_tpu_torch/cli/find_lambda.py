@@ -103,7 +103,7 @@ def main(argv=None) -> list:
             "lgcnhs_tpu_torch yet (ROADMAP queue 1 item 7)"
         )
 
-    graph, user_features, item_features, _ = load_pipeline(cfg)
+    graph, user_features, item_features, _ = load_pipeline(cfg, device)
     U, I = graph.n_users, graph.n_items
     flavor = sweep_flavor(U, I)
     ctx = EvalContext.build(U, I, graph.test, graph.train, graph.val, device)

@@ -9,17 +9,20 @@ on the test split and prints them as one JSON line.
 
 Usage:
   python -m lgcnhs_tpu_torch.cli.main --dataset movielens1m --env prod \\
-      --model SpreadLightGCNOpti --workdir artifacts [--no-cache] [--device cpu]
+      --model SpreadLightGCNOpti --workdir artifacts [--data-dir DIR] \\
+      [--no-cache] [--device cpu]
 
-``--target-user`` (a raw dataset id) needs the id mappings of
-``data/idmap.py``, which are not ported yet (ROADMAP queue 1 item 5);
-``--target-user-internal`` takes the internal index.
+``--target-user`` logs one user's list by RAW dataset id (a Douban md5 or a
+MovieLens id, tried as given and then as an int), decoded through the id
+mappings (``data/idmap.py``); ``--target-user-internal`` takes the internal
+index.
 """
 from __future__ import annotations
 
 import json
 
 from lgcnhs_tpu_torch.cli.common import base_parser, config_from_args, load_pipeline
+from lgcnhs_tpu_torch.data.idmap import IdMapper
 from lgcnhs_tpu_torch.eval.metrics import EvalContext, evaluate_recommendations
 from lgcnhs_tpu_torch.models.recommenders import recommend
 from lgcnhs_tpu_torch.runtime.cache import ArtifactCache
@@ -32,8 +35,11 @@ def main(argv=None) -> dict:
     parser.add_argument(
         "--target-user",
         default=None,
-        help="a user's RAW dataset id; not ported yet (needs data/idmap.py, "
-        "ROADMAP queue 1 item 5): use --target-user-internal",
+        help="also log this user's recommendation list, by RAW dataset id "
+        "— a Douban nickname-md5 or a raw MovieLens id — decoded through "
+        "the stored id mappings (the reference configures target_user as a "
+        "raw md5, const.py:244; handleRating's uid_mapping, "
+        "processing/handleData.py:70-77)",
     )
     parser.add_argument(
         "--target-user-internal",
@@ -42,18 +48,12 @@ def main(argv=None) -> dict:
         help="also log this user's recommendation list, by INTERNAL dense index",
     )
     args = parser.parse_args(argv)
-    if args.target_user is not None:
-        raise SystemExit(
-            "--target-user decodes raw ids through data/idmap.py, which is not "
-            "ported to lgcnhs_tpu_torch yet (ROADMAP queue 1 item 5); pass "
-            "--target-user-internal with the internal index"
-        )
     device = resolve_device(args.device)
     cfg = config_from_args(args)
     log = get_logger("lgcnhs", cfg.log_path)
 
     log.info("Step1: loading preprocessed data")
-    graph, user_features, item_features, _ = load_pipeline(cfg)
+    graph, user_features, item_features, splits = load_pipeline(cfg, device)
 
     log.info("Step2: computing recommendations with model %s", cfg.model)
     cache = ArtifactCache(cfg.recommend_path, enabled=not args.no_cache)
@@ -78,15 +78,45 @@ def main(argv=None) -> dict:
         "[%s Test Diversity] H@%d: %s, I@%d: %s",
         cfg.model, cfg.k, metrics["H"], cfg.k, metrics["I"],
     )
-    user = args.target_user_internal
-    if user is not None:
-        if 0 <= user < graph.n_users:
-            log.info("recommendations for internal user %d: %s", user, rec[user].tolist())
-        else:
-            log.warning("target user %d is not an internal index (%d users)",
-                        user, graph.n_users)
+    if args.target_user is not None or args.target_user_internal is not None:
+        _log_target_user(args, graph, splits, rec, log)
     print(json.dumps({"model": cfg.model, "k": cfg.k, **metrics}))
     return metrics
+
+
+def _log_target_user(args, graph, splits, rec, log) -> None:
+    """One user's list, by raw id decoded through the id mappings or by
+    internal index (``lgcnhs_tpu/cli/main.py:77-125``; the port's splits
+    always carry their mappings, so JAX's branch for a split cache without
+    them has no counterpart)."""
+    mapper = IdMapper.from_splits(splits)
+    if args.target_user_internal is not None:
+        internal = args.target_user_internal
+    else:
+        # raw id lookup: exact key first (douban md5 strings), then the int
+        # form (MovieLens raw ids round-trip argv as str)
+        internal = mapper.uid_to_internal.get(args.target_user)
+        if internal is None:
+            try:
+                internal = mapper.uid_to_internal.get(int(args.target_user))
+            except ValueError:
+                internal = None
+    if internal is None or not 0 <= int(internal) < graph.n_users:
+        log.warning(
+            "target user %r not found in the id mapping (%d users)",
+            args.target_user
+            if args.target_user is not None
+            else args.target_user_internal,
+            graph.n_users,
+        )
+        return
+    internal = int(internal)
+    raw_items = [mapper.internal_to_iid[i] for i in rec[internal]]
+    log.info(
+        "recommendations for user %s (internal %d): internal %s, raw %s",
+        mapper.internal_to_uid[internal], internal,
+        rec[internal].tolist(), raw_items,
+    )
 
 
 if __name__ == "__main__":

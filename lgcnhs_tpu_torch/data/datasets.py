@@ -1,9 +1,15 @@
-"""Dataset dispatch: the synthetic tier.
+"""Dataset dispatch: raw files, else the synthetic tier.
 
-Port of the synthetic branch of ``lgcnhs_tpu/data/datasets.load_dataset``
-(``:47-81``): a named dataset whose raw files are absent is synthesized,
-seeded, at its configured scale (``movielens1m`` at 6040 x 3706 with
-1,000,209 interactions, ``config.py``). Raw-file ingestion is not ported yet.
+Port of ``lgcnhs_tpu/data/datasets.load_dataset``. When every raw file of
+``preprocessing.dataset_paths`` exists (``--data-dir``), the dataset's own
+pipeline ingests it (``data/movielens.py``, ``data/movielens1m.py``,
+``data/douban.py``), its text embedder trained on ``device``. Otherwise a
+named dataset is synthesized, seeded, at its configured scale
+(``movielens1m`` at 6040 x 3706 with 1,000,209 interactions, ``config.py``).
+Ingestion writes the rating and feature artifacts to ``cfg.preprocess_path``,
+as JAX does; the synthetic tier writes none (JAX writes its rating CSVs too),
+since its seed remakes the same split and the four CSVs of an ML-1M-sized
+stand-in cost ~2 s of host time a run.
 """
 from __future__ import annotations
 
@@ -23,14 +29,25 @@ SYN_USER_FEATURE_DIM = 29
 SYN_ITEM_FEATURE_DIM = 37
 
 
-def load_dataset(cfg: Config) -> Tuple[RatingSplits, np.ndarray, np.ndarray]:
-    """(splits, user_features, item_features) for the configured dataset."""
+def load_dataset(cfg: Config, device="cuda") -> Tuple[RatingSplits, np.ndarray, np.ndarray]:
+    """(splits, user_features, item_features) for the configured dataset;
+    ``device`` is where ingestion trains its text embedder."""
+    save_path = cfg.preprocess_path
     paths = cfg.preprocessing.dataset_paths
-    if paths and all(os.path.exists(p) for p in paths.values()):
-        raise NotImplementedError(
-            f"raw {cfg.dataset} ingestion is not ported yet; only the seeded "
-            "synthetic stand-in is"
-        )
+    have_raw = bool(paths) and all(os.path.exists(p) for p in paths.values())
+    if cfg.dataset == "movielens" and have_raw:
+        from lgcnhs_tpu_torch.data.movielens import prepare_movielens
+
+        return prepare_movielens(cfg, save_path, device)
+    if cfg.dataset == "movielens1m" and have_raw:
+        from lgcnhs_tpu_torch.data.movielens1m import prepare_movielens1m
+
+        return prepare_movielens1m(cfg, save_path, device)
+    if cfg.dataset == "douban" and have_raw:
+        from lgcnhs_tpu_torch.data.douban import prepare_douban
+
+        return prepare_douban(cfg, save_path, device)
+
     if cfg.dataset in ("movielens", "movielens1m", "douban"):
         get_logger().info(
             "%s raw files not found; synthesizing a seeded stand-in dataset",

@@ -12,20 +12,28 @@ order given the same input table and seed:
    random_state=s)`` is a ``RandomState(s).permutation(n)`` whose first
    ``ceil(t*n)`` entries are the test side and the rest the train side; the
    same is done here, and rows keep the permuted order ``.loc`` gives them.
+5. with ``save_path``, the JAX package's artifacts, written without pandas
+   (``runtime/table.py``) byte for byte as pandas writes them:
+   ``filter_rating.csv``, ``train_data.csv``, ``val_data.csv``,
+   ``test_data.csv`` and ``id_mappings.npz`` (the sorted raw classes).
+   ``load_cached_splits`` reads them back.
 
-The CSV and id-map artifacts of the JAX package are not written.
+String raw ids (Douban's ``USER_MD5``) remap in sorted order like ints,
+as LabelEncoder orders them.
 """
 from __future__ import annotations
 
 import math
+import os
 from dataclasses import dataclass
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 
 from lgcnhs_tpu_torch.config import Config
 from lgcnhs_tpu_torch.data.synthetic import Columns
 from lgcnhs_tpu_torch.runtime.logging import get_logger, stage_timer
+from lgcnhs_tpu_torch.runtime.table import read_table, write_csv
 
 COLUMNS = ("user_id", "item_id", "rating", "rating_time")
 
@@ -44,11 +52,11 @@ class RatingSplits:
 
     @property
     def n_users(self) -> int:
-        return len(self.uid_mapping)
+        return len(np.unique(self.rating["user_id"]))
 
     @property
     def n_items(self) -> int:
-        return len(self.iid_mapping)
+        return len(np.unique(self.rating["item_id"]))
 
 
 def _dense_remap(values: np.ndarray) -> Tuple[np.ndarray, Dict]:
@@ -69,7 +77,8 @@ def _take(table: Columns, rows: np.ndarray) -> Columns:
     return {name: col[rows] for name, col in table.items()}
 
 
-def prepare_ratings(rating: Columns, cfg: Config) -> RatingSplits:
+def prepare_ratings(rating: Columns, cfg: Config,
+                    save_path: Optional[str] = None) -> RatingSplits:
     pre = cfg.preprocessing
     cols = pre.columns_map
     log = get_logger()
@@ -77,13 +86,15 @@ def prepare_ratings(rating: Columns, cfg: Config) -> RatingSplits:
     with stage_timer("rating preprocessing done", log):
         # 1. quantile-band user-activity filter
         users = np.asarray(rating[cols["user_id"]])
-        uniq, counts = np.unique(users, return_counts=True)
+        _, user_of_row, counts = np.unique(users, return_inverse=True, return_counts=True)
         thr_start = np.quantile(counts, pre.quantile_start)
         thr_end = np.quantile(counts, pre.quantile_end)
         log.info("quantile start %.4f threshold: %s", pre.quantile_start, thr_start)
         log.info("quantile end %.4f threshold: %s", pre.quantile_end, thr_end)
-        kept_users = uniq[(counts >= thr_end) & (counts <= thr_start)]
-        keep = np.flatnonzero(np.isin(users, kept_users))
+        # the rows of kept users, by each row's user (np.isin compares every
+        # row with every kept id when the ids are strings)
+        kept_user = (counts >= thr_end) & (counts <= thr_start)
+        keep = np.flatnonzero(kept_user[user_of_row.ravel()])
 
         # 2. column projection + rename
         filtered = {
@@ -115,4 +126,46 @@ def prepare_ratings(rating: Columns, cfg: Config) -> RatingSplits:
                 len(np.unique(split["item_id"])),
             )
 
+        # 5. artifacts
+        if save_path:
+            os.makedirs(save_path, exist_ok=True)
+            for name, table in (("filter_rating", filtered), ("train_data", train),
+                                ("val_data", val), ("test_data", test)):
+                write_csv(os.path.join(save_path, f"{name}.csv"), table)
+            _save_id_mappings(save_path, uid_mapping, iid_mapping)
+
     return RatingSplits(filtered, train, val, test, uid_mapping, iid_mapping)
+
+
+def _save_id_mappings(save_path: str, uid_mapping: Dict, iid_mapping: Dict) -> None:
+    """The mappings are {raw_id -> dense_id} with dense ids 0..N-1 assigned in
+    sorted-raw order, so the sorted raw-class arrays are a complete encoding."""
+    np.savez(
+        os.path.join(save_path, "id_mappings.npz"),
+        uid_classes=np.asarray(list(uid_mapping.keys())),
+        iid_classes=np.asarray(list(iid_mapping.keys())),
+    )
+
+
+def _load_id_mappings(save_path: str) -> Tuple[Dict, Dict]:
+    path = os.path.join(save_path, "id_mappings.npz")
+    if not os.path.exists(path):
+        return {}, {}
+    with np.load(path, allow_pickle=False) as data:
+        uid = {k: i for i, k in enumerate(data["uid_classes"].tolist())}
+        iid = {k: i for i, k in enumerate(data["iid_classes"].tolist())}
+    return uid, iid
+
+
+def load_cached_splits(save_path: str) -> Optional[RatingSplits]:
+    """The CSV artifacts read back, with their id mappings, if all four exist
+    (reference ``main.py:28-40``); columns typed as ``pd.read_csv`` types them."""
+    paths = {
+        name: os.path.join(save_path, f"{name}.csv")
+        for name in ("filter_rating", "train_data", "val_data", "test_data")
+    }
+    if not all(os.path.exists(p) for p in paths.values()):
+        return None
+    uid_mapping, iid_mapping = _load_id_mappings(save_path)
+    rating, train, val, test = (read_table(p) for p in paths.values())
+    return RatingSplits(rating, train, val, test, uid_mapping, iid_mapping)

@@ -38,20 +38,13 @@ from lgcnhs_tpu_torch.ops.topk import retrieval_route, retrieve_topk
 def user_csr(n_users: int, es: EdgeSet) -> Tuple[np.ndarray, np.ndarray]:
     """User-major CSR of an edge set: (rowptr (U+1,) int32, cols (E,)
     int32), each user's items sorted and deduplicated (the dense 0/1
-    ``interaction_matrix`` / ``pos_bool_matrix`` set, they do not add). The
-    numpy lexsort + unique builder of ``lgcnhs_tpu/native/bindings.build_csr``
-    (``:166-175``), whose output the native builder matches."""
-    rows = np.ascontiguousarray(es.users, dtype=np.int32)
-    cols = np.ascontiguousarray(es.items, dtype=np.int32)
-    order = np.lexsort((cols, rows))
-    r, c = rows[order], cols[order]
-    keep = np.ones(r.shape[0], dtype=bool)
-    keep[1:] = (r[1:] != r[:-1]) | (c[1:] != c[:-1])
-    r, c = r[keep], c[keep]
-    rowptr = np.zeros(n_users + 1, dtype=np.int64)
-    np.add.at(rowptr, r + 1, 1)
-    np.cumsum(rowptr, out=rowptr)
-    return rowptr.astype(np.int32), c
+    ``interaction_matrix`` / ``pos_bool_matrix`` set, they do not add). Built
+    by the native graph builder where it compiles, its numpy fallback
+    otherwise (``native.bindings.build_csr``), as ``lgcnhs_tpu/ops/scalable.py:47``."""
+    from lgcnhs_tpu_torch.native.bindings import build_csr
+
+    indptr, indices = build_csr(np.asarray(es.users), np.asarray(es.items), n_users)
+    return indptr.astype(np.int32), indices
 
 
 def csr_keys(rowptr: np.ndarray, cols: np.ndarray, device) -> torch.Tensor:

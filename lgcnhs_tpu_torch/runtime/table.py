@@ -5,9 +5,13 @@ False)`` and reads them back with ``pd.read_csv``: the training history
 (reference ``train.py:190-196``), the lambda sweep
 (``findLambda.py:118-120``), the cross-model report
 (``evaluationMetrics.py:85-92``). The port does not depend on pandas: it
-writes and reads the same files here. A table is a dict of equal-length
-columns, as ``pd.DataFrame(dict)`` takes it; ``rows_to_columns`` turns a list
-of row dicts (``pd.DataFrame(list_of_dicts)``) into one.
+writes and reads the same files here, and the raw dataset files: a table is
+a dict of equal-length columns, as ``pd.DataFrame(dict)`` takes it;
+``rows_to_columns`` turns a list of row dicts (``pd.DataFrame(list_of_dicts)``)
+into one. ``read_table`` reads a file as ``pd.read_csv`` does (a separator of
+one or more characters, an encoding, a header row or given names) into
+typed numpy columns. ``read_csv`` reads back the tables the port writes,
+strictly (a row of another length raises).
 
 Each column is written as pandas writes its inferred dtype:
 
@@ -17,15 +21,16 @@ Each column is written as pandas writes its inferred dtype:
 - only bools: ``True`` / ``False``;
 - anything else: ``str`` of each value, NaN as an empty field.
 
-Fields holding a comma, a quote or a line break are quoted as the ``csv``
-module's ``QUOTE_MINIMAL`` does; lines end in ``\\n``.
+Fields holding the separator, a quote or a line break are quoted as the
+``csv`` module's ``QUOTE_MINIMAL`` does; lines end in ``\\n``. A list cell is
+written as ``str(list)``, as pandas writes it.
 """
 from __future__ import annotations
 
 import csv
 import io
 import math
-from typing import Dict, List, Mapping, Sequence
+from typing import Dict, List, Mapping, Optional, Sequence
 
 import numpy as np
 
@@ -49,8 +54,19 @@ def _float_cell(v) -> str:
     return "" if math.isnan(v) else repr(v)
 
 
+def _is_numeric_array(values) -> bool:
+    return isinstance(values, np.ndarray) and (values.dtype.kind in "iu"
+                                               or values.dtype == np.float64)
+
+
 def _column_cells(values: Sequence) -> List[str]:
     """One column's fields, formatted by its inferred dtype."""
+    if _is_numeric_array(values):
+        # numpy columns in bulk: ints as ints, floats by their shortest repr
+        if values.dtype.kind == "f":
+            return ["" if v != v else repr(v) for v in values.tolist()]
+        return list(map(str, values.tolist()))
+    values = list(values)
     if all(_is_int(v) for v in values):
         return [str(int(v)) for v in values]
     if all(_is_int(v) or _is_float(v) for v in values):
@@ -69,24 +85,24 @@ def rows_to_columns(rows: Sequence[Mapping]) -> Columns:
     return {n: [row.get(n, math.nan) for row in rows] for n in names}
 
 
-def to_csv(columns: Mapping[str, Sequence]) -> str:
-    """The table as ``pd.DataFrame(columns).to_csv(index=False)`` writes it."""
+def to_csv(columns: Mapping[str, Sequence], sep: str = ",") -> str:
+    """The table as ``pd.DataFrame(columns).to_csv(index=False, sep=sep)``
+    writes it."""
     names = list(columns)
     lengths = {len(columns[n]) for n in names}
     if len(lengths) > 1:
         raise ValueError(f"columns of unequal length: {sorted(lengths)}")
-    cells = [_column_cells(list(columns[n])) for n in names]
+    cells = [_column_cells(columns[n]) for n in names]
     out = io.StringIO()
-    writer = csv.writer(out, lineterminator="\n")
+    writer = csv.writer(out, delimiter=sep, lineterminator="\n")
     writer.writerow(names)
-    for row in zip(*cells):
-        writer.writerow(row)
+    writer.writerows(zip(*cells))
     return out.getvalue()
 
 
-def write_csv(path: str, columns: Mapping[str, Sequence]) -> None:
+def write_csv(path: str, columns: Mapping[str, Sequence], sep: str = ",") -> None:
     with open(path, "w", newline="") as f:
-        f.write(to_csv(columns))
+        f.write(to_csv(columns, sep))
 
 
 def _parse(field: str):
@@ -124,3 +140,93 @@ def read_csv(path: str) -> Columns:
         else:
             columns[name] = [v if _is_nan(v) else r[j] for v, r in zip(values, body)]
     return columns
+
+
+#: ``pd.read_csv``'s default ``na_values``: a field equal to one of these is NaN
+NA_STRINGS = frozenset([
+    "", "#N/A", "#N/A N/A", "#NA", "-1.#IND", "-1.#QNAN", "-NaN", "-nan", "1.#IND",
+    "1.#QNAN", "<NA>", "N/A", "NA", "NULL", "NaN", "None", "n/a", "nan", "null",
+])
+_TRUE, _FALSE = ("True", "TRUE", "true"), ("False", "FALSE", "false")
+
+
+def _records(text: str, sep: str) -> List[List[str]]:
+    """The file's rows of fields, blank lines skipped. A one-character
+    separator reads as pandas' C parser does: a field that opens with ``"``
+    is quoted, may hold the separator and line breaks, ``""`` inside it is
+    one quote, and what follows its closing quote up to the separator is
+    appended. A longer separator is a plain split of each line, as pandas'
+    python engine splits by a regex separator, with no quoting."""
+    if len(sep) == 1:
+        rows = csv.reader(io.StringIO(text, newline=""), delimiter=sep, quotechar='"',
+                          doublequote=True, strict=False)
+        return [r for r in rows if r and not (len(r) == 1 and r[0].strip(" \t") == "")]
+    lines = text.replace("\r\n", "\n").replace("\r", "\n").split("\n")
+    return [line.split(sep) for line in lines if line]
+
+
+def _plain_numbers(fields) -> bool:
+    """Python's int()/float() also take ``1_000`` and non-ASCII digits;
+    pandas does not. Checked on the fields joined, in one pass."""
+    text = "".join(fields)
+    return text.isascii() and "_" not in text
+
+
+def _typed_column(fields: List[str]) -> np.ndarray:
+    """One column typed as ``pd.read_csv`` infers it: int64 when every field
+    is an integer; float64 when every field is numeric or NaN (so an int
+    column with an empty cell is float); bool when every field is a boolean
+    word; else objects, the fields' strings with NaN for the NA words."""
+    na = np.fromiter((f in NA_STRINGS for f in fields), dtype=bool, count=len(fields))
+    vals = np.asarray([f for f, n in zip(fields, na) if not n], dtype=object)
+    if vals.size == 0:
+        return np.full(len(fields), np.nan)
+    plain = _plain_numbers(vals)
+    for dtype in (np.int64, np.float64):
+        try:
+            typed = vals.astype(dtype) if plain else None
+        except (ValueError, OverflowError):
+            typed = None
+        if typed is not None:
+            if not na.any():
+                return typed
+            out = np.full(len(fields), np.nan)
+            out[~na] = typed
+            return out
+    out = np.empty(len(fields), dtype=object)
+    if all(v in _TRUE or v in _FALSE for v in vals):
+        if not na.any():
+            return np.asarray([v in _TRUE for v in vals], dtype=bool)
+        vals = np.asarray([v in _TRUE for v in vals], dtype=object)
+    out[~na] = vals
+    out[na] = np.nan
+    return out
+
+
+def read_table(path: str, sep: str = ",", names: Optional[Sequence[str]] = None,
+               encoding: str = "utf-8") -> Dict[str, np.ndarray]:
+    """A raw dataset file as ``pd.read_csv(path, sep=sep, encoding=encoding)``
+    reads it (``header=None, names=names`` when ``names`` is given), as a
+    dict of typed numpy columns (``_typed_column``). A row with fewer fields
+    than names is padded with NaN; one with more raises."""
+    with open(path, encoding=encoding, newline="") as f:
+        records = _records(f.read(), sep)
+    if names is None:
+        if not records:
+            raise ValueError(f"{path}: no header row")
+        names, records = records[0], records[1:]
+    names = list(names)
+    width = len(names)
+    for r in records:
+        if len(r) > width:
+            raise ValueError(f"{path}: expected {width} fields, saw {len(r)}")
+        if len(r) < width:
+            r.extend([""] * (width - len(r)))
+    columns = list(zip(*records)) if records else [()] * width
+    return {name: _typed_column(list(col)) for name, col in zip(names, columns)}
+
+
+def as_str(values: np.ndarray) -> List:
+    """``pd.Series(values).astype(str).tolist()`` under pandas 3: NaN stays
+    NaN (a float), everything else becomes ``str`` of the value."""
+    return [v if isinstance(v, float) and math.isnan(v) else str(v) for v in values.tolist()]

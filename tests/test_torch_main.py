@@ -141,14 +141,24 @@ def test_cached_list_is_read_and_no_cache_recomputes(tmp_path, log_lines, capsys
 
 
 def test_target_user_flags(tmp_path, log_lines, capsys):
+    """Both flags log the decoded line of the JAX ``cli/main``; a raw id
+    that is not a user logs its warning."""
     workdir = str(tmp_path)
     _write_checkpoints([workdir], seed=2)
     args = ["--device", "cpu", "--model", "LightGCNOpti", "--workdir", workdir, *SIZE]
     t_main.main([*args, "--target-user-internal", "7"])
     rec = _saved_list("LightGCNOpti", workdir)
-    assert f"recommendations for internal user 7: {rec[7].tolist()}" in log_lines
-    with pytest.raises(SystemExit, match="data/idmap.py"):
-        t_main.main([*args, "--target-user", "196"])
+    splits = load_dataset(_config("LightGCNOpti", workdir))[0]
+    raw_user = list(splits.uid_mapping)[7]
+    raw_items = [list(splits.iid_mapping)[i] for i in rec[7]]
+    line = (f"recommendations for user {raw_user} (internal 7): internal {rec[7].tolist()}, "
+            f"raw {raw_items}")
+    assert line in log_lines
+    log_lines.clear()
+    t_main.main([*args, "--target-user", str(raw_user)])
+    assert line in log_lines
+    t_main.main([*args, "--target-user", "196"])
+    assert "target user '196' not found in the id mapping (150 users)" in log_lines
     capsys.readouterr()
 
 

@@ -29,3 +29,50 @@ def dyadic(rng, shape, lo=-4, hi=5, denom=8):
     exact in f32, so every summation order gives the same scores, with many
     exact ties."""
     return (rng.integers(lo, hi, shape) / denom).astype(np.float32)
+
+
+def jax_negatives(token_docs, *, window=5, min_count=1, negative=5, epochs=5,
+                  batch_size=1024, seed=42):
+    """The negative ids ``lgcnhs_tpu.data.word2vec.train_word2vec`` draws,
+    (n_steps, batch_size, negative) int32: its key splits replayed in a
+    ``lax.scan`` (``key, sub = split(key)``, then ``categorical(sub, 0.75
+    log freq)`` each step, from ``PRNGKey(seed)``), with n_steps from its own
+    host draws."""
+    import jax
+    import jax.numpy as jnp
+
+    from lgcnhs_tpu.data.word2vec import _skipgram_pairs, build_vocab
+
+    rng = np.random.default_rng(seed)
+    vocab, freq = build_vocab(token_docs, min_count)
+    centers, _ = _skipgram_pairs(token_docs, vocab, window, rng)
+    n_steps = max(1, int(np.ceil(epochs * centers.size / batch_size)))
+    logits = jnp.asarray(0.75 * np.log(freq), dtype=jnp.float32)
+
+    def step(key, _):
+        key, sub = jax.random.split(key)
+        neg = jax.random.categorical(sub, logits, shape=(batch_size, negative))
+        return key, neg.astype(jnp.int32)
+
+    _, negs = jax.lax.scan(step, jax.random.PRNGKey(seed), None, length=n_steps)
+    return np.asarray(negs)
+
+
+def pin_text_method(monkeypatch, method="hash"):
+    """Both packages' dataset pipelines embed text with ``method`` (their
+    ``text_embeddings`` names patched where the pipelines look them up)."""
+    import functools
+
+    import lgcnhs_tpu.data.douban as jdb
+    import lgcnhs_tpu.data.features as jf
+    import lgcnhs_tpu.data.movielens as jml
+    import lgcnhs_tpu.data.movielens1m as jm1
+    import lgcnhs_tpu_torch.data.douban as tdb
+    import lgcnhs_tpu_torch.data.features as tf
+    import lgcnhs_tpu_torch.data.movielens as tml
+    import lgcnhs_tpu_torch.data.movielens1m as tm1
+
+    for features, modules in ((jf, (jml, jm1, jdb)), (tf, (tml, tm1, tdb))):
+        pinned = functools.partial(features.text_embeddings, method=method)
+        for module in modules:
+            monkeypatch.setattr(module, "text_embeddings", pinned)
