@@ -95,7 +95,11 @@ neither JAX nor ``lgcnhs_tpu``. Phases:
    route over 20 epochs, within the JAX rung test's tolerance; the ML-1M
    stand-in forced into COO beside its dense f32 route, one seed. Launch
    counts set to 0 before each run and read after; each run's seconds, ms
-   a step, CSR-evaluation retrieval and I@k seconds and peak memory.
+   a step, CSR-evaluation retrieval and I@k seconds and peak memory. Then
+   ``dual_matmul``'s gap to the exact (f64) sums against the sum length
+   (``dual_accumulation_check``): a dense int8 R of ones, bf16-exact X and
+   Y of mixed and of positive signs, sums of 3,706 to 100,000 products in
+   each role, within ``ACCUM_REL_TOL`` of scale, the plain twin beside it.
 7. The single-device entry points (``lambda_resume_report_phase``), run
    right after phase 4 on its workdirs, every launch count set to 0 before
    each run and read after: (a) ``cli/find_lambda`` at ML-1M over the full 101-point grid on
@@ -142,6 +146,28 @@ neither JAX nor ``lgcnhs_tpu``. Phases:
    word2vec with its steps and ms a step on the card), each ``cli/main``
    run's Step 1-3 seconds and peak device memory.
 
+9. The mesh (``mesh_phase``, last): a world-1 NCCL process group from a
+   file store and ``make_mesh((1, 1))`` (the card machine has one card:
+   NCCL takes no two ranks on one GPU, so the mesh runs at world size 1
+   here and no scaling is measured). At the prod preset, D=64, k=100, each
+   beside its single-device route: (a) ``train_lightgcn_on_mesh`` against
+   ``train_lightgcn`` on the ``dual_matmul`` route at ML-1M, 20 epochs from
+   one seed (history within ``TWIN_LOSS_TOL``, tables within
+   ``TWIN_TABLE_TOL``, 6 launches a step and nothing else), and the train
+   step alone, the two routes in turns; (b) ``distributed_retrieve_topk``
+   at ML-1M and over the 49,410-item catalog at k=100 and k=1000: ids
+   identical to ``retrieve_topk``, one ``fused_topk_retrieval`` launch a
+   call; (c) ``distributed_fused_recommend`` against ``fused_recommend``
+   (identical or tie-equivalent under f64 scores); (d)
+   ``sharded_diffusion_scores`` within ``MESH_DIFF_TOL`` of
+   ``diffusion_scores``; (e) ``sharded_lambda_sweep`` in both layouts
+   (grid-parallel, item-sharded with W_gen and S built as collective Grams)
+   over ``MESH_SWEEP_POINTS`` points: rows equal ``lambda_sweep_metrics``'.
+   Launch counts set to 0 before each run and read after; each row's mesh
+   and single-device ms (the collectives' cost at world size 1). Phase 5
+   also times matmul+topk at k=1000 over the 49,410 items beside the
+   retrieval kernel.
+
 Prints one PASS/FAIL line per check, then (all passed) the kernel JSON line,
 the ``nvidia-smi`` name/power-limit line, and the final
 ``{"ok": true, "device": ...}`` line. Any failure exits non-zero and prints
@@ -150,6 +176,7 @@ no result.
 from __future__ import annotations
 
 import csv
+import itertools
 import json
 import logging
 import math
@@ -204,9 +231,11 @@ COO_TABLE_TOL = 1e-4
 # dual_matmul on the large graph against its exact products (f64): a hub
 # item's output sums tens of thousands of bf16 products in f32, several
 # times ML-1M's longest sum, so DUAL_REL_TOL does not carry over. Measured:
-# the kernel 3.47e-5 of scale from the exact sums (the twin's f32 matmul
-# 1.3e-7); a misplaced tile is O(1).
-LARGE_DUAL_REL_TOL = 1e-4
+# the kernel 1.058e-6 of scale from the exact sums with its two-level sum
+# (3.469e-5 when the mma accumulators held the whole depth), the twin's f32
+# matmul 1.3e-7; a misplaced tile is O(1). The bar sits between the two
+# sums' readings, so the whole-depth sum fails it.
+LARGE_DUAL_REL_TOL = 1e-5
 # phase 7 (c): resume on the dual_matmul route at ML-1M. The card sums the
 # backward of the table gathers with atomics, in no fixed order, so two runs
 # of the same route are not bitwise equal; the bar is the kernel-vs-twin
@@ -221,6 +250,24 @@ INGEST_EPOCHS = 300
 # f32 sums in another order, the CPU tests' tolerance against JAX (1.8e-6
 # measured there at dim 20; 3e-7 to 7e-7 on an H100 over this phase's corpora)
 W2V_ATOL = 1e-5
+# phase 6: dual_matmul's gap to the exact (f64) sums against the sum length,
+# a dense int8 R of ones and bf16-exact X and Y (every product exact in f32)
+ACCUM_LENGTHS = (3706, 10_000, 30_000, 100_000)
+ACCUM_WIDE = 128  # the other side of R
+# The f32 matmul sits within 4e-7 of scale at every length; the kernel's
+# two-level sum within 1.8e-6 at 100,000 positive products; summed in the
+# mma accumulators across the whole depth it sat 1.5e-4 below, all of one
+# sign (tools/dual_accum.py, PERF.md).
+ACCUM_REL_TOL = 1e-5
+# phase 9, the mesh on NCCL at world size 1: training from one seed on the
+# mesh route and the single-device kernel route over TWIN_EPOCHS (the same
+# products, the collectives between them), held to the kernel-vs-twin bars;
+# the sharded diffusion within 1e-5 of each output's scale; the sweep over
+# MESH_SWEEP_POINTS grid points, its rows equal and its raw metrics within
+# 1e-5 relative (tests/test_sweep.py's bar)
+MESH_SWEEP_POINTS = 5
+MESH_DIFF_TOL = 1e-5
+MESH_SWEEP_RTOL = 1e-5
 # the retrieval kernel's launches inside ops/scalable.chunked_masked_topk,
 # counted apart from its other launches (phases 6 and 8)
 CHUNKED = "fused_topk_retrieval@chunked_masked_topk"
@@ -1093,6 +1140,317 @@ class PartTimer:
                 "word2vec_ms_per_step": step_s * 1e3 / steps if steps else None}
 
 
+def dual_accumulation_check(check, dev, smi):
+    """Phase 6: ``dual_matmul``'s gap to the exact sums against the sum
+    length L (``ACCUM_LENGTHS``): role U sums a row of R (128, L) against X,
+    role I a column of R (L, 128) against Y, R all ones, X and Y bf16 (each
+    product exact in f32). The plain twin (an f32 matmul) beside it.
+    Returns the rows."""
+    import torch
+
+    from lgcnhs_tpu_torch.ops.cuda import propagation as prop
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    rows = []
+    for L, role, signs in itertools.product(ACCUM_LENGTHS, ("U", "I"), ("mixed", "positive")):
+        shape = (ACCUM_WIDE, L) if role == "U" else (L, ACCUM_WIDE)
+        R = torch.ones(shape, dtype=torch.int8, device=dev)
+        X, Y = (torch.randn((n, 64), generator=gen, device=dev) for n in (shape[1], shape[0]))
+        if signs == "positive":  # partial sums grow as L, not as sqrt(L)
+            X, Y = X.abs(), Y.abs()
+        X, Y = X.to(torch.bfloat16), Y.to(torch.bfloat16)
+        side = 0 if role == "U" else 1
+        exact = R.double() @ X.double() if role == "U" else R.double().T @ Y.double()
+        scale = exact.abs().max().item()
+        row = {"role": role, "L": L, "signs": signs}
+        for name, fn in (("kernel", prop.dual_matmul), ("twin", prop.dual_matmul_ref)):
+            err = fn(R, X, Y)[side].double() - exact
+            row[name] = err.abs().max().item() / scale
+            row[f"{name}_mean"] = err.mean().item() / scale
+        rows.append(row)
+        del R, X, Y, exact
+    torch.cuda.empty_cache()
+    print(f"[phase 6] dual_matmul gap to the exact sums by sum length (max and mean signed, "
+          f"of scale): {json.dumps(rows)} [{smi}]", flush=True)
+    worst = max(r["kernel"] for r in rows)
+    check(f"dual_matmul: sums of up to {ACCUM_LENGTHS[-1]} bf16-exact products within "
+          f"{ACCUM_REL_TOL:g} of each output's scale of the exact sums",
+          worst <= ACCUM_REL_TOL, f"worst {worst:.3e}")
+    return rows
+
+
+def count_launches(kernels, run):
+    """(run(), its launches by kernel name): every count set to 0 just
+    before and read just after. Retrieval launches made inside
+    ``chunked_masked_topk`` (the trainer's CSR evaluation,
+    ``recommend_gcn``'s chunked branch) are counted apart, under
+    ``CHUNKED``, as phase 6 counts them."""
+    from lgcnhs_tpu_torch.models import recommenders
+    from lgcnhs_tpu_torch.ops.cuda import retrieval as rt
+    from lgcnhs_tpu_torch.train import trainer
+
+    for fn in kernels.values():
+        fn.launches = 0
+    chunked = [0]
+    saved = [(m, m.chunked_masked_topk) for m in (trainer, recommenders)]
+
+    def wrap(topk):
+        def call(*a, **kw):
+            before = rt.fused_topk_retrieval.launches
+            try:
+                return topk(*a, **kw)
+            finally:
+                chunked[0] += rt.fused_topk_retrieval.launches - before
+        return call
+
+    for m, topk in saved:
+        m.chunked_masked_topk = wrap(topk)
+    try:
+        result = run()
+    finally:
+        for m, topk in saved:
+            m.chunked_masked_topk = topk
+    counted = {name: fn.launches for name, fn in kernels.items()}
+    counted["fused_topk_retrieval"] -= chunked[0]
+    counted[CHUNKED] = chunked[0]
+    return result, counted
+
+
+def mesh_phase(check, dev, smi, env):
+    """Phase 9: the mesh on NCCL at world size 1 (module docstring). Returns
+    its launches by kernel and its rows."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from lgcnhs_tpu_torch import config as tcfg
+    from lgcnhs_tpu_torch.data.graph import (
+        binary_incidence_factors, interaction_matrix, pos_bool_matrix, unique_edges,
+    )
+    from lgcnhs_tpu_torch.eval.metrics import EvalContext
+    from lgcnhs_tpu_torch.models.fusion import (
+        allocate_matrix, distributed_fused_recommend, fused_recommend,
+    )
+    from lgcnhs_tpu_torch.models.lightgcn import LightGCNParams
+    from lgcnhs_tpu_torch.ops import diffusion as tdiff
+    from lgcnhs_tpu_torch.ops import sweep as tsweep
+    from lgcnhs_tpu_torch.ops.cuda import propagation as prop
+    from lgcnhs_tpu_torch.ops.metrics_ops import similarity_matrix
+    from lgcnhs_tpu_torch.ops.topk import MASK_VALUE, retrieve_topk
+    from lgcnhs_tpu_torch.parallel import sharding
+    from lgcnhs_tpu_torch.runtime.mesh import backend_for, make_mesh
+    from lgcnhs_tpu_torch.train import trainer
+
+    kernels = env["kernels"]
+    launches = dict.fromkeys([*kernels, CHUNKED], 0)
+    rows = []
+    graph, (uf, itf) = env["graph"], env["feats"]
+    U, I = graph.n_users, graph.n_items
+
+    def counted(fn):
+        """fn() with its launches counted (``count_launches``): phase 9's
+        main-path launches."""
+        out, got = count_launches(kernels, fn)
+        torch.cuda.synchronize()
+        for name, n in got.items():
+            launches[name] += n
+        return out, got
+
+    def row(name, shape, mesh_ms, single_ms, **extra):
+        rows.append({"name": name, "shape": shape, "mesh_ms": mesh_ms, "single_ms": single_ms,
+                     "collective_ms": mesh_ms - single_ms, **extra})
+        print(f"[phase 9] {name} {shape}: mesh {mesh_ms:.4f} ms, single device "
+              f"{single_ms:.4f} ms ({mesh_ms - single_ms:+.4f}) {json.dumps(extra)} [{smi}]",
+              flush=True)
+
+    def host_ms(fn, reps=3):
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return sorted(times)[reps // 2]
+
+    store = tempfile.mkdtemp(prefix="chip_smoke_nccl_", dir=os.path.join(ROOT, "artifacts"))
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    dist.init_process_group(backend_for(dev), world_size=1, rank=0,
+                            init_method=f"file://{os.path.join(store, 'store')}")
+    try:
+        check("phase 9: a world-1 process group on NCCL",
+              dist.get_backend() == "nccl" and dist.get_world_size() == 1, dist.get_backend())
+        mesh = make_mesh((1, 1))
+        check("phase 9: make_mesh((1, 1)) on the card",
+              mesh.device == dev and mesh.shape == {"data": 1, "model": 1}, repr(mesh))
+
+        # (a) training: the trainer's mesh function against the single-device
+        # kernel route, one seed
+        cfg = tcfg.load_config(env="prod", dataset="movielens1m", model="LightGCNOpti",
+                               overrides={"hparams.epochs": TWIN_EPOCHS,
+                                          "hparams.epoch_per_eval": 10})
+        t0 = time.perf_counter()
+        single = trainer.train_lightgcn(graph, cfg, uf, itf, save_artifacts=False, device=dev)
+        single_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        meshed, got = counted(lambda: trainer.train_lightgcn_on_mesh(
+            graph, cfg, mesh, uf, itf, save_artifacts=False))
+        mesh_s = time.perf_counter() - t0
+        want = {name: 6 * TWIN_EPOCHS if name == "dual_matmul" else 0 for name in launches}
+        check(f"phase 9: mesh training launched dual_matmul 6 x {TWIN_EPOCHS} and nothing else",
+              got == want, f"{got}")
+        hist_gap = max(abs(a - b) for col in single.history
+                       for a, b in zip(single.history[col], meshed.history[col]))
+        table_gap = max((a - b).abs().max().item() for a, b in zip(single.params, meshed.params))
+        check(f"phase 9: mesh training tracks the single-device kernel route over {TWIN_EPOCHS} "
+              "epochs: history", hist_gap <= TWIN_LOSS_TOL and
+              single.history["iters"] == meshed.history["iters"],
+              f"max gap {hist_gap:.3e}, tolerance {TWIN_LOSS_TOL:g}")
+        check(f"phase 9: mesh training tracks the single-device kernel route over {TWIN_EPOCHS} "
+              "epochs: tables", table_gap <= TWIN_TABLE_TOL,
+              f"max gap {table_gap:.3e}, tolerance {TWIN_TABLE_TOL:g}")
+        row("train_lightgcn (20 epochs, 2 evals)", [U, I, 64], mesh_s * 1e3, single_s * 1e3,
+            history_gap=hist_gap, table_gap=table_gap, launches=got)
+
+        # the train step alone, the two routes in turns
+        hp = cfg.hparams
+        te = unique_edges(graph.train)
+        p_init = trainer._init_params(graph, cfg, uf, itf, "cpu", torch.float32)[0]
+        pos = pos_bool_matrix(U, I, graph.train)
+        R8, du, di = trainer.device_binary_factors(U, I, graph.train, dev)
+        p_s = LightGCNParams(*(t.to(dev, copy=True).requires_grad_(True) for t in p_init))
+        step_s = trainer.make_train_step(trainer.make_optimizer(hp, p_s), hp, I,
+                                         bf16_matmul=True, use_kernel=True)
+        args_s = ((prop.pad_for_dual(R8), du, di),
+                  torch.from_numpy(te.users.astype(np.int64)).to(dev),
+                  torch.from_numpy(te.items.astype(np.int64)).to(dev), torch.from_numpy(pos).to(dev))
+        plan = sharding.make_plan(mesh)
+        (R8b, dub, dib), pos_b, eu_b, ei_b = sharding.shard_train_inputs(
+            plan, binary_incidence_factors(U, I, graph.train), pos, te.users, te.items)
+        args_m = ((prop.pad_for_dual(R8b), dub, dib), eu_b, ei_b, pos_b)
+        p_m = LightGCNParams(*(t.requires_grad_(True) for t in sharding.shard_params(plan, p_init)))
+        step_m = sharding.make_sharded_train_step(plan, trainer.make_optimizer(hp, p_m), hp, I,
+                                                  bf16_matmul=True)
+        epochs = {"single": 0, "mesh": 0}
+
+        def steps(route, n):
+            step, params, args = ((step_s, p_s, args_s) if route == "single"
+                                  else (step_m, p_m, args_m))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(n):
+                e = epochs[route]
+                epochs[route] += 1
+                step(params, e, trainer.epoch_generator(hp.seed, e, dev), *args)
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) * 1e3 / n
+
+        steps("single", 20), steps("mesh", 20)
+        ms = {"single": [], "mesh": []}
+        for route in ("single", "mesh", "mesh", "single"):
+            ms[route].append(steps(route, 100))
+        row("train step (int8 dual_matmul route, B=1024)", [U, I, 64],
+            float(np.mean(ms["mesh"])), float(np.mean(ms["single"])),
+            mesh_runs=ms["mesh"], single_runs=ms["single"])
+        del p_s, p_m, args_s, args_m, R8, R8b, step_s, step_m
+        torch.cuda.empty_cache()
+
+        # (b) retrieval: the item-sharded top-k against retrieve_topk
+        for (g, params, k, label) in env["retrieval"]:
+            ue, ie = params.user_emb.to(dev), params.item_emb.to(dev)
+            seen = torch.from_numpy(pos_bool_matrix(g.n_users, g.n_items, g.train,
+                                                    g.val)).to(dev)
+            want_ids = retrieve_topk(ue, ie, seen, k)
+            got_ids, got = counted(lambda: sharding.distributed_retrieve_topk(mesh, ue, ie, seen,
+                                                                              k))
+            check(f"phase 9: distributed_retrieve_topk {label} k={k}: one fused_topk_retrieval "
+                  "launch", got == {name: int(name == "fused_topk_retrieval") for name in launches},
+                  f"{got}")
+            check(f"phase 9: distributed_retrieve_topk {label} k={k}: ids identical to "
+                  "retrieve_topk", torch.equal(got_ids, want_ids),
+                  f"{int((got_ids != want_ids).sum())} mismatches")
+            row(f"distributed_retrieve_topk {label} k={k}", [g.n_users, g.n_items, 64, k],
+                median_ms(torch, lambda: sharding.distributed_retrieve_topk(mesh, ue, ie, seen,
+                                                                            k), 10),
+                median_ms(torch, lambda: retrieve_topk(ue, ie, seen, k), 10))
+            del seen, want_ids, got_ids
+        torch.cuda.empty_cache()
+
+        # (c) fused ranking and (d) diffusion at ML-1M
+        params = env["fused_params"]
+        params = LightGCNParams(params.user_emb.to(dev), params.item_emb.to(dev))
+        A = torch.from_numpy(interaction_matrix(U, I, graph.train, graph.val)).to(dev)
+        seen = torch.from_numpy(pos_bool_matrix(U, I, graph.train, graph.val)).to(dev)
+        lam = torch.tensor(0.6, dtype=torch.float32)
+        want_ids = fused_recommend(params, A, seen, lam, K_SLICE)
+        got_ids, got = counted(lambda: distributed_fused_recommend(mesh, params, A, seen, lam,
+                                                                   K_SLICE))
+        check("phase 9: distributed_fused_recommend launches no kernel (JAX ranks it in XLA)",
+              not any(got.values()), f"{got}")
+        F64 = tdiff.diffusion_scores(A.double(), lam.double())
+        ref = F64 * torch.where(seen, torch.full_like(F64, MASK_VALUE),
+                                params.user_emb.double() @ params.item_emb.double().T)
+        agreement, gap = tie_equivalence(torch, want_ids, got_ids, ref)
+        check("phase 9: distributed_fused_recommend at ML-1M identical to fused_recommend, or "
+              "tie-equivalent under f64", agreement == 1.0 or
+              (agreement >= AGREEMENT_MIN and gap <= GAP_MAX),
+              f"agreement {agreement:.6f}, mismatched-slot max relative gap {gap:.3e}")
+        del F64, ref
+        row(f"distributed_fused_recommend k={K_SLICE}", [U, I, 64, K_SLICE],
+            host_ms(lambda: distributed_fused_recommend(mesh, params, A, seen, lam, K_SLICE)),
+            host_ms(lambda: fused_recommend(params, A, seen, lam, K_SLICE)),
+            agreement=agreement)
+        F_single = tdiff.diffusion_scores(A, lam)
+        F_mesh, got = counted(lambda: sharding.sharded_diffusion_scores(mesh, A, lam))
+        diff_gap = (F_mesh - F_single).abs().max().item() / F_single.abs().max().item()
+        check(f"phase 9: sharded_diffusion_scores within {MESH_DIFF_TOL:g} of scale of "
+              "diffusion_scores", diff_gap <= MESH_DIFF_TOL and not any(got.values()),
+              f"{diff_gap:.3e}, launches {got}")
+        del F_single, F_mesh
+        row("sharded_diffusion_scores", [U, I],
+            host_ms(lambda: sharding.sharded_diffusion_scores(mesh, A, lam)),
+            host_ms(lambda: tdiff.diffusion_scores(A, lam)), rel_gap=diff_gap)
+
+        # (e) the sharded sweeps over MESH_SWEEP_POINTS points
+        ctx = EvalContext.build(U, I, graph.test, graph.train, graph.val, dev)
+        G = allocate_matrix(params, seen)
+        lams = np.linspace(0.0, 1.0, MESH_SWEEP_POINTS).astype(np.float32)
+        eval_args = (ctx.on_device(ctx.eval_pos), ctx.on_device(ctx.eval_counts),
+                     ctx.on_device(ctx.eval_present))
+        deg = ctx.on_device(ctx.item_deg)
+
+        def single_sweep():
+            W_gen = tdiff.general_spreading_matrix(A)
+            S = similarity_matrix(ctx.on_device(ctx.interaction), deg)
+            return tsweep.lambda_sweep_metrics(lams, G, A, W_gen, seen, *eval_args, S, K_SLICE)
+
+        want_rows = single_sweep()
+        for layout, budget in (("grid-parallel", tsweep.SWEEP_REPLICATION_BUDGET_BYTES),
+                               ("item-sharded", 1)):
+            def sweep():
+                return tsweep.sharded_lambda_sweep(mesh, lams, G, A, None, seen, *eval_args,
+                                                   None, k=K_SLICE, memory_budget_bytes=budget,
+                                                   item_deg=deg)
+
+            got_rows, got = counted(sweep)
+            rel = ((got_rows - want_rows).abs() / want_rows.abs().clamp_min(1e-30)).max().item()
+            same = tsweep.sweep_rows(lams, got_rows.cpu().numpy()) == \
+                tsweep.sweep_rows(lams, want_rows.cpu().numpy())
+            check(f"phase 9: sharded_lambda_sweep ({layout}) at ML-1M over "
+                  f"{MESH_SWEEP_POINTS} points: rows equal lambda_sweep_metrics'",
+                  same and rel <= MESH_SWEEP_RTOL and not any(got.values()),
+                  f"max relative gap {rel:.3e}, launches {got}")
+            row(f"sharded_lambda_sweep {layout} ({MESH_SWEEP_POINTS} points)", [U, I, K_SLICE],
+                host_ms(sweep), host_ms(single_sweep), max_rel_gap=rel)
+        del A, seen, G, ctx
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+    return {"launches": launches, "rows": rows}
+
+
 def ingestion_phase(check, dev, smi, clock):
     """Phase 8: raw files through ``--data-dir`` on the card (module
     docstring). Returns the launches of its main-path runs by kernel and its
@@ -1114,7 +1472,6 @@ def ingestion_phase(check, dev, smi, clock):
     from lgcnhs_tpu_torch.data.idmap import IdMapper
     from lgcnhs_tpu_torch.data.synthetic import synthesize_movielens_like
     from lgcnhs_tpu_torch.eval import metrics as tev
-    from lgcnhs_tpu_torch.models import recommenders
     from lgcnhs_tpu_torch.models.recommenders import checkpoint_path, recommend
     from lgcnhs_tpu_torch.native import bindings as native
     from lgcnhs_tpu_torch.ops import diffusion as tdiff
@@ -1123,7 +1480,6 @@ def ingestion_phase(check, dev, smi, clock):
     from lgcnhs_tpu_torch.ops.cuda import retrieval as rt
     from lgcnhs_tpu_torch.ops.topk import MASK_VALUE
     from lgcnhs_tpu_torch.runtime.table import as_str, read_table
-    from lgcnhs_tpu_torch.train import trainer
     from lgcnhs_tpu_torch.train.trainer import load_checkpoint
     from lgcnhs_tpu_torch.data.raw_standins import write_douban, write_ml100k, write_ml1m
 
@@ -1246,34 +1602,9 @@ def ingestion_phase(check, dev, smi, clock):
     logging.getLogger("lgcnhs").addHandler(keep)
 
     def counted_run(run):
-        """run() with every launch count set to 0 just before and read just
-        after; retrieval launches made inside ``chunked_masked_topk`` (the
-        trainer's CSR evaluation, ``recommend_gcn``'s chunked branch) are
-        counted apart, under ``CHUNKED``, as phase 6 counts them."""
-        for fn in kernels.values():
-            fn.launches = 0
-        chunked = [0]
-        saved = [(m, m.chunked_masked_topk) for m in (trainer, recommenders)]
-
-        def wrap(topk):
-            def call(*a, **kw):
-                before = rt.fused_topk_retrieval.launches
-                try:
-                    return topk(*a, **kw)
-                finally:
-                    chunked[0] += rt.fused_topk_retrieval.launches - before
-            return call
-
-        for m, topk in saved:
-            m.chunked_masked_topk = wrap(topk)
-        try:
-            result = run()
-        finally:
-            for m, topk in saved:
-                m.chunked_masked_topk = topk
-        counted = {name: fn.launches for name, fn in kernels.items()}
-        counted["fused_topk_retrieval"] -= chunked[0]
-        counted[CHUNKED] = chunked[0]
+        """run() with its launches counted (``count_launches``), added to
+        the phase's."""
+        result, counted = count_launches(kernels, run)
         for name, n in counted.items():
             out["launches"][name] += n
         return result, counted
@@ -2282,11 +2613,23 @@ def main() -> int:
             row["also_replaces"] = "lgcnhs_tpu/ops/pallas/retrieval.py:265"
             for key in ("fused_topk_big", "fused_topk_k1000"):
                 big_in = timing_inputs[key]
-                tag = f"catalog_{big_in[1].shape[0]}_k{big_in[3]}"
+                bu, bi, bseen, bk = big_in
+                tag = f"catalog_{bi.shape[0]}_k{bk}"
                 big_ms = median_ms(torch, lambda: fn(*big_in), reps)
                 big_dev = own_device_ms(lambda: fn(*big_in))[0]
-                row.update({f"{tag}_ms": big_ms, f"{tag}_device_ms": big_dev})
-                extra += f"; {tag} {big_ms:.4f} ms (device {big_dev})"
+
+                def big_composition():
+                    return torch.topk(torch.matmul(bu, bi.T).masked_fill_(bseen, MASK_VALUE),
+                                      bk, dim=1)
+
+                # matmul+topk on the same inputs, in the same call as the kernel
+                comp_ms = median_ms(torch, big_composition, reps)
+                comp_dev = sum(device_ms_by_kernel(big_composition, 5)[0].values()) or None
+                row.update({f"{tag}_ms": big_ms, f"{tag}_device_ms": big_dev,
+                            f"{tag}_matmul_topk_ms": comp_ms,
+                            f"{tag}_matmul_topk_device_ms": comp_dev})
+                extra += (f"; {tag} {big_ms:.4f} ms (device {big_dev}), matmul+topk "
+                          f"{comp_ms:.4f} (device {comp_dev})")
         print(f"[phase 5] {name} U={U} I={I} D={D} k={k}: {ms:.4f} ms (twin {plain_ms:.4f}, "
               f"matmul+topk {composition_ms:.4f}, bound {bound_ms:.4f} by {bound_by}) "
               f"max_abs_err {max_abs_err:.3e}{extra} [{smi}]", flush=True)
@@ -2508,6 +2851,10 @@ def main() -> int:
         print(f"[phase 6] rows {json.dumps(large['runs'] + [large['main_row']])}", flush=True)
         print(f"[phase 6] COO vs dense at ML-1M {json.dumps(large['coo_vs_dense'])}", flush=True)
 
+    accum = check.guard("dual_matmul accumulation", dual_accumulation_check, check, dev, smi)
+    if accum:
+        dual_row["accumulation_by_length"] = accum
+
     # -- 8. raw-data ingestion through --data-dir --------------------------
     print(f"[phase 8] ingestion: ML-100K, ML-1M and Douban files on {smi}", flush=True)
     t0 = time.perf_counter()
@@ -2521,6 +2868,27 @@ def main() -> int:
         for name, n in phase8["launches"].items():
             if name != CHUNKED:
                 check(f"phase 8 launched {name} on ingested data", n > 0, f"{n} launches")
+
+    # -- 9. the mesh on NCCL at world size 1 -------------------------------
+    print(f"[phase 9] the mesh at world size 1 on {smi}", flush=True)
+    t0 = time.perf_counter()
+    big_cfg, big_g, big_params = cells[("LightGCNOpti", "synthetic", K_SLICE)]
+    ml1m_params = cells[("LightGCNOpti", "movielens1m", K_SLICE)][2]
+    phase9 = check.guard("mesh", mesh_phase, check, dev, smi, {
+        "kernels": main_kernels, "graph": graph, "feats": (feats_u, feats_i),
+        "fused_params": cells[("SpreadLightGCNOpti", "movielens1m", K_SLICE)][2],
+        "retrieval": [(graph, ml1m_params, K_SLICE, "movielens1m"),
+                      (big_g, big_params, K_SLICE, f"synthetic {big_g.n_items} items"),
+                      (big_g, big_params, K_LARGE, f"synthetic {big_g.n_items} items")]})
+    if phase9:
+        print(f"[phase 9] {time.perf_counter() - t0:.1f} s; launches {phase9['launches']}",
+              flush=True)
+        print(f"[phase 9] rows {json.dumps(phase9['rows'])}", flush=True)
+        for row in report:
+            row["phase9_launches"] = phase9["launches"][row["name"]]
+        for name in ("dual_matmul", "fused_topk_retrieval"):
+            check(f"phase 9 launched {name} on the mesh path", phase9["launches"][name] > 0,
+                  f"{phase9['launches'][name]} launches")
 
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
     if check.failures:

@@ -7,23 +7,34 @@ CPU, for the run and for ingestion's text embedder; ``--data-dir`` points
 at a directory of raw dataset files (ingested by ``data/datasets.py``),
 ``--fetch`` downloads ML-100K / ML-1M there when asked (``data/fetch.py``);
 ``--no-cache`` makes ``cli/main`` ignore its cached lists
-(``runtime/cache.ArtifactCache``). Flags left out, and why:
+(``runtime/cache.ArtifactCache``). ``--mesh DATA,MODEL|auto`` sets
+``compute.mesh_shape``: run one process a device under ``torchrun``
+(``torchrun --nproc-per-node N -m lgcnhs_tpu_torch.cli.main --mesh 1,N``;
+with ``--device cpu`` the ranks are CPU processes on gloo);
+``distributed_run`` starts and ends the process group, and
+``load_pipeline`` loads the data on rank 0 and hands it to the others.
+Flags left out, and why:
 
 - ``--platform``, ``--profile``, ``--scan-chunk``: JAX-only (the platform
   pin, ``jax.profiler``, the ``lax.scan`` chunking);
-- ``--mesh``, ``--coo-table-sharding``: the mesh is ROADMAP queue 1 item 7.
+- ``--coo-table-sharding``: the table-sharded COO steps are the second
+  half of ROADMAP queue 1 item 7.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
+from typing import Iterator
 
 import torch
+import torch.distributed as dist
 
 from lgcnhs_tpu_torch.config import DATASETS, MODEL_NAMES, Config, load_config
 from lgcnhs_tpu_torch.data.datasets import load_dataset
 from lgcnhs_tpu_torch.data.graph import build_graph
 from lgcnhs_tpu_torch.runtime.logging import get_logger
+from lgcnhs_tpu_torch.runtime.mesh import init_distributed, world_size
 
 
 def base_parser(description: str) -> argparse.ArgumentParser:
@@ -40,6 +51,14 @@ def base_parser(description: str) -> argparse.ArgumentParser:
     p.add_argument("--items", type=int, default=None, help="synthetic item count")
     p.add_argument(
         "--interactions", type=int, default=None, help="synthetic interaction count"
+    )
+    p.add_argument(
+        "--mesh",
+        default=None,
+        metavar="DATA,MODEL",
+        help='device mesh shape, e.g. "2,4", or "auto" to put every rank on the model '
+        "axis (tables row-sharded, catalog item-sharded, distributed top-k; default "
+        "single device); one process a device, started by torchrun",
     )
     p.add_argument(
         "--data-dir",
@@ -116,6 +135,14 @@ def config_from_args(args: argparse.Namespace) -> Config:
     if args.quantile is not None:
         overrides["preprocessing.quantile_start"] = args.quantile[0]
         overrides["preprocessing.quantile_end"] = args.quantile[1]
+    if args.mesh is not None:
+        if args.mesh == "auto":
+            overrides["compute.mesh_shape"] = (0, 0)  # every rank on the model axis
+        else:
+            parts = tuple(int(x) for x in args.mesh.split(","))
+            if len(parts) != 2 or any(p < 1 for p in parts):
+                raise SystemExit(f"--mesh expects DATA,MODEL (got {args.mesh!r})")
+            overrides["compute.mesh_shape"] = parts
     if args.data_dir:
         from lgcnhs_tpu_torch.data.fetch import douban_paths, ml100k_paths, ml1m_paths
 
@@ -142,13 +169,41 @@ def config_from_args(args: argparse.Namespace) -> Config:
     return cfg
 
 
+@contextlib.contextmanager
+def distributed_run(cfg: Config, device: torch.device) -> Iterator[int]:
+    """The process group a mesh run needs, for the body of an entry point:
+    started (``runtime/mesh.init_distributed``, from the variables torchrun
+    sets; NCCL on CUDA, gloo on the CPU) when ``compute.mesh_shape`` needs
+    more than one rank, or is "auto" under a launcher of several, and ended
+    on the way out. A group the caller already started is kept and left
+    running. Yields the world size."""
+    shape = tuple(cfg.compute.mesh_shape)
+    started = False
+    if not dist.is_initialized() and (
+        shape[0] * shape[1] > 1 or (shape == (0, 0) and int(os.environ.get("WORLD_SIZE", "1")) > 1)
+    ):
+        started = init_distributed(device=device) > 1
+    try:
+        yield world_size()
+    finally:
+        if started:
+            dist.destroy_process_group()
+
+
 def load_pipeline(cfg: Config, device="cuda"):
     """Dataset -> (graph arrays, user features, item features, splits), with
     the JAX package's shape log line (reference ``main.py:47-58``).
     ``splits`` carries the raw<->internal id mappings for external-id decode;
-    ``device`` trains ingestion's text embedder."""
+    ``device`` trains ingestion's text embedder. Under a process group rank
+    0 alone loads (and writes the preprocessing artifacts) and the other
+    ranks receive its arrays."""
     log = get_logger("lgcnhs", cfg.log_path)
-    splits, user_features, item_features = load_dataset(cfg, device)
+    if world_size() > 1:
+        loaded = [load_dataset(cfg, device) if dist.get_rank() == 0 else None]
+        dist.broadcast_object_list(loaded, src=0)
+        splits, user_features, item_features = loaded[0]
+    else:
+        splits, user_features, item_features = load_dataset(cfg, device)
     graph = build_graph(splits)
     log.info(
         "users: %d, items: %d | train %s val %s test %s | user_features %s item_features %s",

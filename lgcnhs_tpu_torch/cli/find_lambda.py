@@ -12,11 +12,16 @@ Usage:
   python -m lgcnhs_tpu_torch.cli.find_lambda --dataset movielens1m --env prod \\
       --workdir artifacts [--step 0.01] [--device cpu]
 
-The flavor follows the JAX CLI's dispatch: the W-free flavor where
-``choose_diffusion`` says "factored", or says "blocked"/"sharded" and the
-factored live set still fits one device; an exit where nothing fits one
-device (the item-sharded sweep needs the mesh, ROADMAP queue 1 item 7); the
-dense flavor otherwise. The flavor is picked before G is trained or loaded.
+The flavor follows the JAX CLI's dispatch (``lgcnhs_tpu/cli/find_lambda.py:
+65-130``): the W-free flavor where ``choose_diffusion`` says "factored", or
+says "blocked"/"sharded" and the factored live set still fits one device
+(with ``--mesh``: the grid over every rank, ``sharded_lambda_sweep_tall``);
+the dense flavor otherwise, or with ``--mesh`` ``sharded_lambda_sweep``
+(grid-parallel, or item-sharded past its replication budget); without a
+mesh, an exit where nothing fits one device. The flavor is picked before G
+is trained or loaded. On a mesh every rank sweeps and gets the rows; rank 0
+alone writes the CSV and the plots:
+  torchrun --nproc-per-node N -m lgcnhs_tpu_torch.cli.find_lambda --mesh 1,N ...
 """
 from __future__ import annotations
 
@@ -25,7 +30,9 @@ import os
 import numpy as np
 import torch
 
-from lgcnhs_tpu_torch.cli.common import base_parser, config_from_args, load_pipeline
+from lgcnhs_tpu_torch.cli.common import (
+    base_parser, config_from_args, distributed_run, load_pipeline,
+)
 from lgcnhs_tpu_torch.data.graph import interaction_matrix, pos_bool_matrix
 from lgcnhs_tpu_torch.eval.metrics import EvalContext
 from lgcnhs_tpu_torch.models.fusion import allocate_matrix
@@ -36,17 +43,22 @@ from lgcnhs_tpu_torch.ops.diffusion import (
     general_spreading_matrix,
 )
 from lgcnhs_tpu_torch.ops.metrics_ops import similarity_matrix
-from lgcnhs_tpu_torch.ops.sweep import lambda_sweep_metrics, lambda_sweep_metrics_tall, sweep_rows
+from lgcnhs_tpu_torch.ops.sweep import (
+    lambda_sweep_metrics, lambda_sweep_metrics_tall, sharded_lambda_sweep,
+    sharded_lambda_sweep_tall, sweep_rows,
+)
 from lgcnhs_tpu_torch.runtime.device import resolve_device
 from lgcnhs_tpu_torch.runtime.logging import get_logger
+from lgcnhs_tpu_torch.runtime.mesh import is_writer, mesh_from_config
 from lgcnhs_tpu_torch.runtime.table import rows_to_columns, write_csv
 
 METRICS = ("P", "R", "F1", "NDCG", "H", "I")
 
 
-def sweep_flavor(n_users: int, n_items: int) -> str:
-    """"tall" (no (I, I) operand) or "dense" for one device at f32;
-    ``SystemExit`` where no single-device layout fits
+def sweep_flavor(n_users: int, n_items: int, mesh: bool = False) -> str:
+    """"tall" (no (I, I) operand), "dense", or with a mesh "sharded" where
+    the dense flavor would run or nothing fits one device, at f32;
+    ``SystemExit`` without a mesh where no single-device layout fits
     (``find_lambda.py:67-113``)."""
     itemsize = 4
     regime = choose_diffusion(n_users, n_items, itemsize)
@@ -56,12 +68,13 @@ def sweep_flavor(n_users: int, n_items: int) -> str:
     if regime == "factored" or (regime in ("blocked", "sharded")
                                 and factored_fits(n_users, n_items, itemsize)):
         return "tall"
+    if mesh:
+        return "sharded"
     if regime in ("blocked", "sharded"):
         raise SystemExit(
             f"lambda sweep at U={n_users} x I={n_items} exceeds a single device in every "
             "layout (the (I, I) operands and the W-free flavor's (U, U) + (U, I) live set "
-            "are all over budget): it needs a mesh, and the item-sharded sweep is not "
-            "ported to lgcnhs_tpu_torch yet (ROADMAP queue 1 item 7)"
+            "are all over budget) — run with --mesh to use the item-sharded sweep"
         )
     return "dense"
 
@@ -96,16 +109,16 @@ def main(argv=None) -> list:
     args = parser.parse_args(argv)
     device = resolve_device(args.device)
     cfg = config_from_args(args)
-    log = get_logger("lgcnhs", cfg.log_path)
-    if tuple(cfg.compute.mesh_shape) != (1, 1):
-        raise NotImplementedError(
-            "the sharded lambda sweep (compute.mesh_shape) is not ported to "
-            "lgcnhs_tpu_torch yet (ROADMAP queue 1 item 7)"
-        )
+    with distributed_run(cfg, device):
+        return _run(args, cfg, device)
 
+
+def _run(args, cfg, device) -> list:
+    log = get_logger("lgcnhs", cfg.log_path)
+    mesh = mesh_from_config(cfg.compute)
     graph, user_features, item_features, _ = load_pipeline(cfg, device)
     U, I = graph.n_users, graph.n_items
-    flavor = sweep_flavor(U, I)
+    flavor = sweep_flavor(U, I, mesh is not None)
     ctx = EvalContext.build(U, I, graph.test, graph.train, graph.val, device)
 
     # G once (findLambda.py:79)
@@ -116,28 +129,41 @@ def main(argv=None) -> list:
     lambdas = np.arange(0.0, 1.0 + args.step, args.step, dtype=np.float32)
     eval_args = (ctx.on_device(ctx.eval_pos), ctx.on_device(ctx.eval_counts),
                  ctx.on_device(ctx.eval_present))
+    item_deg = ctx.on_device(ctx.item_deg)
 
     if flavor == "tall":
+        where = f"grid over the {mesh.size} ranks of mesh {mesh.shape}" if mesh else str(device)
         log.info("lambda sweep: W-free flavor (no (I, I) operand; user-factored "
-                 "diffusion + direct Sorensen), %d points on %s", len(lambdas), device)
-        metrics = lambda_sweep_metrics_tall(lambdas, G, A, seen, *eval_args,
-                                            ctx.on_device(ctx.item_deg), cfg.k)
+                 "diffusion + direct Sorensen), %d points on %s", len(lambdas), where)
+        tall_args = (G, A, seen, *eval_args, item_deg)
+        if mesh is not None:
+            metrics = sharded_lambda_sweep_tall(mesh, lambdas, *tall_args, k=cfg.k)
+        else:
+            metrics = lambda_sweep_metrics_tall(lambdas, *tall_args, cfg.k)
+    elif flavor == "sharded":
+        # W_gen and S are built inside, in the layout the replication budget
+        # picks: whole on every rank, or as collective Grams over the
+        # item-sharded A where a whole (I, I) would not fit a rank
+        log.info("lambda sweep sharded over %d ranks (mesh %s flattened), %d points",
+                 mesh.size, mesh.shape, len(lambdas))
+        metrics = sharded_lambda_sweep(mesh, lambdas, G, A, None, seen, *eval_args, None,
+                                       k=cfg.k, item_deg=item_deg)
     else:
         log.info("lambda sweep: dense flavor (W_gen and S hoisted), %d points on %s",
                  len(lambdas), device)
         # W_gen once (findLambda.py:81)
         W_gen = general_spreading_matrix(A)
-        S = similarity_matrix(ctx.on_device(ctx.interaction), ctx.on_device(ctx.item_deg))
+        S = similarity_matrix(ctx.on_device(ctx.interaction), item_deg)
         metrics = lambda_sweep_metrics(lambdas, G, A, W_gen, seen, *eval_args, S, cfg.k)
 
     rows = sweep_rows(lambdas, metrics.cpu().numpy())
     for row in rows:
         log.info("lambda %.2f evaluated: %s", row["lambda"], row)
-
-    out = os.path.join(cfg.evaluation_path, f"lambda_evaluation_{cfg.k}.csv")
-    write_csv(out, rows_to_columns(rows))
-    log.info("lambda sweep saved: %s", out)
-    _plot(rows, cfg.evaluation_path, cfg.k, log)
+    if is_writer():
+        out = os.path.join(cfg.evaluation_path, f"lambda_evaluation_{cfg.k}.csv")
+        write_csv(out, rows_to_columns(rows))
+        log.info("lambda sweep saved: %s", out)
+        _plot(rows, cfg.evaluation_path, cfg.k, log)
     return rows
 
 

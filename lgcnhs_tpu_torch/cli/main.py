@@ -16,18 +16,27 @@ Usage:
 MovieLens id, tried as given and then as an int), decoded through the id
 mappings (``data/idmap.py``); ``--target-user-internal`` takes the internal
 index.
+
+On a mesh, one process a device:
+  torchrun --nproc-per-node N -m lgcnhs_tpu_torch.cli.main --mesh 1,N ...
+(``--device cpu``: N CPU processes on gloo). Every rank runs the pipeline
+(training, the item-sharded ranking and the evaluation); rank 0 alone
+writes the artifacts and the log file and prints the metric line.
 """
 from __future__ import annotations
 
 import json
 
-from lgcnhs_tpu_torch.cli.common import base_parser, config_from_args, load_pipeline
+from lgcnhs_tpu_torch.cli.common import (
+    base_parser, config_from_args, distributed_run, load_pipeline,
+)
 from lgcnhs_tpu_torch.data.idmap import IdMapper
 from lgcnhs_tpu_torch.eval.metrics import EvalContext, evaluate_recommendations
 from lgcnhs_tpu_torch.models.recommenders import recommend
 from lgcnhs_tpu_torch.runtime.cache import ArtifactCache
 from lgcnhs_tpu_torch.runtime.device import resolve_device
 from lgcnhs_tpu_torch.runtime.logging import get_logger
+from lgcnhs_tpu_torch.runtime.mesh import barrier, is_writer
 
 
 def main(argv=None) -> dict:
@@ -50,6 +59,11 @@ def main(argv=None) -> dict:
     args = parser.parse_args(argv)
     device = resolve_device(args.device)
     cfg = config_from_args(args)
+    with distributed_run(cfg, device):
+        return _run(args, cfg, device)
+
+
+def _run(args, cfg, device) -> dict:
     log = get_logger("lgcnhs", cfg.log_path)
 
     log.info("Step1: loading preprocessed data")
@@ -59,9 +73,11 @@ def main(argv=None) -> dict:
     cache = ArtifactCache(cfg.recommend_path, enabled=not args.no_cache)
     rec_key = f"all_user_recommend_{cfg.model}_{cfg.k}"
     rec = cache.load_recommendations(rec_key)
+    barrier()  # every rank has read the cache before rank 0 may write it
     if rec is None or rec.shape != (graph.n_users, cfg.k):
         rec = recommend(graph, cfg, device, user_features, item_features)
-        cache.save_recommendations(rec_key, rec)
+        if is_writer():
+            cache.save_recommendations(rec_key, rec)
     else:
         log.info("loaded cached recommendations: %s", rec_key)
 
@@ -80,7 +96,8 @@ def main(argv=None) -> dict:
     )
     if args.target_user is not None or args.target_user_internal is not None:
         _log_target_user(args, graph, splits, rec, log)
-    print(json.dumps({"model": cfg.model, "k": cfg.k, **metrics}))
+    if is_writer():
+        print(json.dumps({"model": cfg.model, "k": cfg.k, **metrics}))
     return metrics
 
 

@@ -15,8 +15,10 @@ ranked per user with seen items excluded, in two flavors:
 - ``serve_fused`` (``cli/retrieve``): the hand-written fused kernel on CUDA
   (``ops/cuda/fusion_serve``), ties to the lowest index.
 
-The mesh flavor (``distributed_fused_recommend``) is not ported (ROADMAP
-queue 1 item 7).
+With a mesh (``compute.mesh_shape``), ``recommend_fused`` ranks through
+``distributed_fused_recommend``: G, F and F_new item-sharded, the (I, I)
+operator never on one rank, the distributed spread ranker
+(``lgcnhs_tpu/models/fusion.py:163-245``).
 """
 from __future__ import annotations
 
@@ -31,7 +33,13 @@ from lgcnhs_tpu_torch.ops.diffusion import (
     diffusion_scores_auto, general_spreading_matrix, hybrid_resource, hybrid_transfer,
 )
 from lgcnhs_tpu_torch.ops.topk import MASK_VALUE, rank_exclude_seen_topk
+from lgcnhs_tpu_torch.parallel.sharding import (
+    _block_width, _distributed_rank_core, _hybrid_resource_block, _pad_rows,
+)
 from lgcnhs_tpu_torch.runtime.logging import get_logger, stage_timer
+from lgcnhs_tpu_torch.runtime.mesh import (
+    MODEL_AXIS, col_sharded, mesh_from_config, replicated, row_sharded,
+)
 
 
 def allocate_matrix(params: LightGCNParams, seen: torch.Tensor) -> torch.Tensor:
@@ -123,22 +131,56 @@ def fusion_scores(params: LightGCNParams, A: torch.Tensor, seen: torch.Tensor, l
     return G * hybrid_resource(A, general_spreading_matrix(A), lam)
 
 
+def distributed_fused_recommend(
+    mesh,
+    params: LightGCNParams,
+    A,  # (U, I) train+val interaction matrix
+    seen,  # (U, I) bool
+    lam,
+    k: int,
+) -> torch.Tensor:
+    """Item-block-sharded LGCNHS ranking (SURVEY.md section 2.9): each rank
+    holds its item columns of A, seen, G and F_new and its rows of the item
+    table; F's column block comes from the other ranks' blocks of A in turn
+    (``parallel/sharding._hybrid_resource_block``: no (I, I) operand on any
+    rank), and F_new is ranked by the distributed spread ranker. The item
+    axis is padded to the model axis with zero-interaction columns (every
+    real degree unchanged), seen, with an explicit -inf fused score: ranked
+    last, never emitted for k <= I. (U, k) int32 on every rank."""
+    A, seen = torch.as_tensor(A), torch.as_tensor(seen)
+    n_items = A.shape[1]
+    block = _block_width(mesh, n_items, k)
+    I_pad = block * mesh.shape[MODEL_AXIS]
+    pad = (0, I_pad - n_items)
+    A_blk = col_sharded(mesh, torch.nn.functional.pad(A, pad))
+    seen_blk = col_sharded(mesh, torch.nn.functional.pad(seen, pad, value=True))
+    ue = replicated(mesh, params.user_emb)
+    ie_blk = row_sharded(mesh, _pad_rows(torch.as_tensor(params.item_emb), I_pad))
+    G_blk = allocate_matrix(LightGCNParams(ue, ie_blk), seen_blk)
+    fused = G_blk * _hybrid_resource_block(mesh, A_blk, lam)
+    if I_pad != n_items:
+        start = mesh.index(MODEL_AXIS) * block
+        padded = torch.arange(start, start + block, device=fused.device) >= n_items
+        fused = fused.masked_fill(padded[None, :], -torch.inf)
+    return _distributed_rank_core(mesh, fused, seen_blk, k, True, block)
+
+
 def recommend_fused(graph: InteractionGraph, cfg: Config, params: LightGCNParams) -> np.ndarray:
     """(U, k) int32 recommendations of SpreadLightGCN[Opti] on the tables'
-    device: ``fused_recommend`` with A in f32 and lambda in A's dtype."""
-    if tuple(cfg.compute.mesh_shape) != (1, 1):
-        raise NotImplementedError(
-            "the item-sharded fused recommendation (compute.mesh_shape) is not "
-            "ported to lgcnhs_tpu_torch yet (ROADMAP queue 1 item 7)"
-        )
+    device: ``fused_recommend`` with A in f32 and lambda in A's dtype, or
+    ``distributed_fused_recommend`` on the mesh ``compute.mesh_shape``
+    resolves to."""
+    mesh = mesh_from_config(cfg.compute)
     device = params.user_emb.device
     log = get_logger()
     with stage_timer(f"{cfg.model} fused recommendation done", log):
         A = torch.from_numpy(
-            interaction_matrix(graph.n_users, graph.n_items, graph.train, graph.val)
-        ).to(device)
+            interaction_matrix(graph.n_users, graph.n_items, graph.train, graph.val))
         seen = torch.from_numpy(
-            pos_bool_matrix(graph.n_users, graph.n_items, graph.train, graph.val)
-        ).to(device)
+            pos_bool_matrix(graph.n_users, graph.n_items, graph.train, graph.val))
         lam = torch.as_tensor(cfg.hparams.lambda_, dtype=A.dtype)
-        return fused_recommend(params, A, seen, lam, cfg.k).cpu().numpy()
+        if mesh is not None:
+            rec = distributed_fused_recommend(mesh, params, A, seen, lam, cfg.k)
+        else:
+            rec = fused_recommend(params, A.to(device), seen.to(device), lam, cfg.k)
+        return rec.cpu().numpy()

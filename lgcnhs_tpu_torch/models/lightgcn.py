@@ -109,18 +109,22 @@ def bpr_loss(
     neg_final: torch.Tensor,
     neg_0: torch.Tensor,
     epsilon: float,
+    batch_size: Optional[int] = None,
 ) -> torch.Tensor:
     """Reference BPR (``model/LightGCN/loss.py:12-44``) with its sign flip,
     ``-mean(softplus(pos - neg))``, plus epsilon times the squared norms of
     the batch's LAYER-0 rows. softplus as ``logaddexp(x, 0)``, the form
-    ``jax.nn.softplus`` takes."""
+    ``jax.nn.softplus`` takes. ``batch_size`` set: the rows are a slice of
+    a batch of that size and the mean's denominator is the whole batch's,
+    so the slices' values sum to the batch's loss (the mesh's data axis)."""
     reg = epsilon * (
         torch.sum(users_0 * users_0) + torch.sum(pos_0 * pos_0) + torch.sum(neg_0 * neg_0)
     )
     pos_scores = torch.sum(users_final * pos_final, dim=-1)
     neg_scores = torch.sum(users_final * neg_final, dim=-1)
     diff = pos_scores - neg_scores
-    bpr = -torch.mean(torch.logaddexp(diff, torch.zeros_like(diff)))
+    softplus = torch.logaddexp(diff, torch.zeros_like(diff))
+    bpr = -torch.mean(softplus) if batch_size is None else -torch.sum(softplus) / batch_size
     return bpr + reg
 
 

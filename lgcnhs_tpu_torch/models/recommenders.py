@@ -2,8 +2,9 @@
 every model family.
 
 Port of ``lgcnhs_tpu/models/recommenders.py`` (reference per-model
-``recommend.py`` entry points and ``model/LightGCN/recommend.py:148-154``),
-single device.
+``recommend.py`` entry points and ``model/LightGCN/recommend.py:148-154``); with a mesh
+(``compute.mesh_shape``) training, retrieval and the fused ranking run
+sharded (``parallel/sharding``).
 """
 from __future__ import annotations
 
@@ -20,7 +21,9 @@ from lgcnhs_tpu_torch.models.lightgcn import LightGCNParams
 from lgcnhs_tpu_torch.models.spread import SPREAD_METHODS, recommend_spread_method
 from lgcnhs_tpu_torch.ops.scalable import chunked_masked_topk, user_csr
 from lgcnhs_tpu_torch.ops.topk import retrieve_topk
+from lgcnhs_tpu_torch.parallel.sharding import distributed_retrieve_topk
 from lgcnhs_tpu_torch.runtime.logging import get_logger, stage_timer
+from lgcnhs_tpu_torch.runtime.mesh import mesh_from_config
 from lgcnhs_tpu_torch.train import trainer
 from lgcnhs_tpu_torch.train.trainer import load_checkpoint, train_lightgcn
 
@@ -67,22 +70,25 @@ def recommend_gcn(graph: InteractionGraph, cfg: Config, params: LightGCNParams) 
     kernel on CUDA for f32 tables). When the (U, I) f32 scores would pass
     the trainer's 4 GB ``DENSIFY_BUDGET_BYTES`` (the JAX branch's 4e9),
     retrieval runs in user chunks with seen masks from a CSR of train+val
-    (``ops/scalable.chunked_masked_topk``): the same ids, no (U, I) array."""
-    if tuple(cfg.compute.mesh_shape) != (1, 1):
-        raise NotImplementedError(
-            "the item-sharded retrieval (compute.mesh_shape) is not ported to "
-            "lgcnhs_tpu_torch yet (ROADMAP queue 1 item 7)"
-        )
-    if 4.0 * graph.n_users * graph.n_items > trainer.DENSIFY_BUDGET_BYTES:
+    (``ops/scalable.chunked_masked_topk``): the same ids, no (U, I) array.
+    With a mesh the catalog is item-sharded and ranked by the distributed
+    top-k merge (``parallel/sharding.distributed_retrieve_topk``: the
+    retrieval kernel on each rank's items on CUDA)."""
+    mesh = mesh_from_config(cfg.compute)
+    if mesh is None and 4.0 * graph.n_users * graph.n_items > trainer.DENSIFY_BUDGET_BYTES:
         seen_edges = EdgeSet(np.concatenate([graph.train.users, graph.val.users]),
                              np.concatenate([graph.train.items, graph.val.items]))
         rowptr, cols = user_csr(graph.n_users, seen_edges)
         return chunked_masked_topk(params.user_emb, params.item_emb, rowptr, cols,
                                    cfg.k).cpu().numpy()
     seen = torch.from_numpy(
-        pos_bool_matrix(graph.n_users, graph.n_items, graph.train, graph.val)
-    ).to(params.user_emb.device)
-    return retrieve_topk(params.user_emb, params.item_emb, seen, cfg.k).cpu().numpy()
+        pos_bool_matrix(graph.n_users, graph.n_items, graph.train, graph.val))
+    if mesh is not None:
+        rec = distributed_retrieve_topk(mesh, params.user_emb, params.item_emb, seen, cfg.k)
+    else:
+        rec = retrieve_topk(params.user_emb, params.item_emb, seen.to(params.user_emb.device),
+                            cfg.k)
+    return rec.cpu().numpy()
 
 
 def recommend(

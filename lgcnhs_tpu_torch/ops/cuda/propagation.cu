@@ -51,9 +51,16 @@
 //     its two m16 strips (the output rows are permuted to match).
 //   * bf16 R is loaded by ldmatrix (role U) or ldmatrix.trans (role I, R^T
 //     without a transposed copy).
-//   The f32 sums accumulate in the mma's accumulators, chunks in ascending
-//   order (measured within 2.1e-7 of each output's scale of the twin at
-//   ML-1M, against 1.4e-7 for summing each chunk from zero first).
+//   The f32 sums are two-level: each 64-deep chunk is summed from zero in
+//   the mma's accumulators, and the chunk's sum is added into f32 registers
+//   (a rounded add), chunks in ascending order. The mma's own adds do not
+//   round to nearest: kept across a whole depth, the sums of 100,000
+//   positive bf16-exact products sat 1.5e-4 of scale below the exact (f64)
+//   sums, all of one sign, against 4e-7 for the f32 matmul; the two-level
+//   sum holds them within 1.8e-6 (2.3e-7 at 30,000), for ~3% more time at
+//   ML-1M (0.0896 against 0.0869 ms; tools/dual_accum.py on an H100 80GB
+//   HBM3 at 700 W). The contract is f32 accumulation (JAX's
+//   preferred_element_type=f32).
 // - f32 pairs (kept full f32: no TF32): the same chunks, f32 FMAs on the
 //   CUDA cores, one fmaf chain per output over a split's ascending k.
 // Every output element is summed in one fixed order with no atomics: two
@@ -283,6 +290,13 @@ __device__ __forceinline__ void block_unit(unsigned char* smem, const TR* __rest
           __syncthreads();
         }
       }
+      float part[MI][NW][4];  // this chunk's sums, from zero
+#pragma unroll
+      for (int i = 0; i < MI; ++i)
+#pragma unroll
+        for (int j = 0; j < NW; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) part[i][j][e] = 0.0f;
 #pragma unroll
       for (int kk = 0; kk < kTile / 16; ++kk) {
         unsigned a[MI][4];
@@ -306,7 +320,7 @@ __device__ __forceinline__ void block_unit(unsigned char* smem, const TR* __rest
           unsigned b[2];
           ldsm_x2_t(b, erow + e_chunk<CPR, L::kRegA>(kr, n0 >> 3) * 8);
 #pragma unroll
-          for (int i = 0; i < MI; ++i) mma_bf16(acc[i][0], a[i], b[0], b[1]);
+          for (int i = 0; i < MI; ++i) mma_bf16(part[i][0], a[i], b[0], b[1]);
         } else {
 #pragma unroll
           for (int j = 0; j < NW; j += 2) {
@@ -314,12 +328,18 @@ __device__ __forceinline__ void block_unit(unsigned char* smem, const TR* __rest
             ldsm_x4_t(b, erow + e_chunk<CPR, L::kRegA>(kr, (n0 >> 3) + j + (q >> 1)) * 8);
 #pragma unroll
             for (int i = 0; i < MI; ++i) {
-              mma_bf16(acc[i][j], a[i], b[0], b[1]);
-              mma_bf16(acc[i][j + 1], a[i], b[2], b[3]);
+              mma_bf16(part[i][j], a[i], b[0], b[1]);
+              mma_bf16(part[i][j + 1], a[i], b[2], b[3]);
             }
           }
         }
       }
+#pragma unroll
+      for (int i = 0; i < MI; ++i)
+#pragma unroll
+        for (int j = 0; j < NW; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[i][j][e] += part[i][j][e];
     }
     const int g = lane >> 2, t2 = 2 * (lane & 3);
 #pragma unroll

@@ -199,8 +199,7 @@ def diffusion_scores_auto(
 ) -> torch.Tensor:
     """``diffusion_scores`` where the dense path fits the budget, else the
     W-free factored or blocked algorithm (``choose_diffusion``); raises when
-    no single-device layout fits. The mesh route it names is not ported
-    (ROADMAP queue 1 item 7)."""
+    no single-device layout fits, naming the mesh route, as JAX does."""
     choice = choose_diffusion(A.shape[0], A.shape[1], A.element_size())
     if choice == "dense":
         return diffusion_scores(A, lam, transpose_w=transpose_w)
@@ -211,7 +210,8 @@ def diffusion_scores_auto(
     raise ValueError(
         f"diffusion at U={A.shape[0]} x I={A.shape[1]} ({A.dtype}) exceeds the "
         f"single-device budget ({DENSE_TRANSFER_BUDGET_BYTES / 1e9:.1f} GB) in every "
-        "layout; even the streamed one needs three (U, I) arrays. The sharded "
-        "diffusion is not ported (ROADMAP queue 1 item 7); raise "
+        "layout; even the streamed one needs three (U, I) arrays. Run on a mesh "
+        "(parallel.sharding.sharded_diffusion_scores / cli.find_lambda --mesh, one "
+        "rank a device under torchrun), or raise "
         "ops.diffusion.DENSE_TRANSFER_BUDGET_BYTES if the device fits the footprint."
     )

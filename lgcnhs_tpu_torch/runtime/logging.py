@@ -15,13 +15,16 @@ import time
 from datetime import datetime
 from typing import Callable, Iterator, Optional
 
+from lgcnhs_tpu_torch.runtime.mesh import is_writer
+
 _FORMAT = "%(asctime)s - %(name)s - %(levelname)s - %(message)s"
 _configured: dict = {}
 
 
 def get_logger(name: str = "lgcnhs", file_dir: Optional[str] = None) -> logging.Logger:
     """Console DEBUG + optional timestamped INFO file handler, matching the
-    reference handler setup (``utils/log.py:30-53``)."""
+    reference handler setup (``utils/log.py:30-53``). Under a process group
+    only rank 0 writes the file."""
     logger = logging.getLogger(name)
     if name in _configured:
         return logger
@@ -33,7 +36,7 @@ def get_logger(name: str = "lgcnhs", file_dir: Optional[str] = None) -> logging.
     console.setFormatter(logging.Formatter(_FORMAT))
     logger.addHandler(console)
 
-    if file_dir:
+    if file_dir and is_writer():
         os.makedirs(file_dir, exist_ok=True)
         stamp = datetime.now().strftime("%Y-%m-%d_%H-%M-%S")
         fh = logging.FileHandler(os.path.join(file_dir, f"{stamp}.log"))

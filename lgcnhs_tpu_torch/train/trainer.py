@@ -48,8 +48,16 @@ The stream does not depend on where a run stopped, so a resumed run draws
 the uninterrupted run's triples, and the CSR samplers draw the dense
 samplers' triples.
 
-Not ported yet: the mesh branch, which raises with its ROADMAP pointer
-(queue 1 item 7). ``--scan-chunk`` has no counterpart without jit.
+The mesh branch (``train_lightgcn_on_mesh``, ``lgcnhs_tpu/train/trainer.py:
+422-470,552-633``): with ``compute.mesh_shape`` resolved to a mesh
+(``runtime/mesh.mesh_from_config``), the tables and Adam's moments are
+row-sharded and padded, the incidence and the positives item-sharded, the
+edges replicated at their true length (the single-device triple stream),
+the step is ``parallel/sharding.make_sharded_train_step`` (``dual_matmul``
+on each rank's int8 item block on the kernel route) and the evaluation
+ranks through the distributed masked top-k. Mesh x COO and
+``compute.coo_table_sharding`` raise with their ROADMAP pointer (queue 1
+item 7, second half). ``--scan-chunk`` has no counterpart without jit.
 """
 from __future__ import annotations
 
@@ -64,6 +72,7 @@ from lgcnhs_tpu_torch.config import Config
 from lgcnhs_tpu_torch.data.graph import (
     EdgeSet,
     InteractionGraph,
+    binary_incidence_factors,
     degree_inv_sqrt,
     device_bf16_incidence,
     interaction_matrix,
@@ -109,6 +118,9 @@ from lgcnhs_tpu_torch.ops.scalable import (
 from lgcnhs_tpu_torch.ops.topk import masked_topk
 from lgcnhs_tpu_torch.runtime.device import resolve_device
 from lgcnhs_tpu_torch.runtime.logging import get_logger, stage_timer
+from lgcnhs_tpu_torch.runtime.mesh import (
+    MODEL_AXIS, Mesh, col_sharded, is_writer, mesh_from_config, replicated, row_sharded,
+)
 from lgcnhs_tpu_torch.runtime.table import read_csv, write_csv
 from lgcnhs_tpu_torch.train.checkpoint import (
     load_optimizer_state,
@@ -208,12 +220,19 @@ DENSIFY_BUDGET_BYTES = 4e9
 HOST_INCIDENCE_BUILD_BYTES = 2e9
 
 
-def choose_propagation(n_users: int, n_items: int, n_edges: int, compute) -> str:
-    """"dense" or "coo", the single-device rule of the JAX trainer: COO when
-    the dense incidence (2 bytes an entry under bfloat16, else 4) would
+def choose_propagation(n_users: int, n_items: int, n_edges: int, compute,
+                       single_chip: Optional[bool] = None) -> str:
+    """"dense" or "coo", the rule of the JAX trainer: COO when the dense
+    incidence (2 bytes an entry under bfloat16 on one device, else 4) would
     exceed ``DENSIFY_BUDGET_BYTES`` or its density is below
-    ``compute.dense_threshold``."""
-    entry_bytes = 2.0 if getattr(compute, "dtype", "") == "bfloat16" else 4.0
+    ``compute.dense_threshold``. The bf16 expansion is single-device only:
+    the mesh builds its sharded arrays on the host at f32 width.
+    ``single_chip`` is whether no mesh resolved, which both trainers pass;
+    by default (JAX's signature) the ``mesh_shape == (1, 1)`` proxy."""
+    if single_chip is None:
+        single_chip = tuple(getattr(compute, "mesh_shape", (1, 1))) == (1, 1)
+    bf16 = getattr(compute, "dtype", "") == "bfloat16"
+    entry_bytes = 2.0 if bf16 and single_chip else 4.0
     density = n_edges / max(1.0, float(n_users) * n_items)
     if entry_bytes * n_users * n_items > DENSIFY_BUDGET_BYTES or density < compute.dense_threshold:
         return "coo"
@@ -363,32 +382,26 @@ def train_lightgcn(
     log = get_logger()
     device = resolve_device(device)
     U, I = graph.n_users, graph.n_items
-    if tuple(cfg.compute.mesh_shape) != (1, 1):
-        raise _not_ported("multi-device training (compute.mesh_shape)", 7)
+    mesh = mesh_from_config(cfg.compute)
+    if mesh is not None:
+        if mesh.device.type != device.type:
+            raise ValueError(f"the mesh's ranks run on {mesh.device.type}, device= asks for "
+                             f"{device.type}")
+        return train_lightgcn_on_mesh(graph, cfg, mesh, user_features, item_features,
+                                      save_artifacts, checkpoint_dir, checkpoint_every)
     if cfg.compute.coo_table_sharding:
         raise ValueError(
             "compute.coo_table_sharding requires a resolved mesh (--mesh); "
             "without one, tables are single-device anyway"
         )
-    if cfg.compute.dtype not in _TABLE_DTYPES:
-        raise ValueError(f"unknown compute.dtype {cfg.compute.dtype!r}")
-    dtype = _TABLE_DTYPES[cfg.compute.dtype]
-    np_dtype = np.float64 if dtype == torch.float64 else np.float32
-
-    init_gen = torch.Generator().manual_seed(hp.seed)
-    if user_features is not None and item_features is not None:
-        params = init_lightgcn_opti(init_gen, user_features, item_features,
-                                    hp.embedding_dim, device, dtype)
-        model_name = "LightGCNOpti"
-    else:
-        params = init_lightgcn(init_gen, U, I, hp.embedding_dim, device, dtype)
-        model_name = "LightGCN"
-    params = LightGCNParams(*(t.detach().clone().to(device, dtype).requires_grad_(True)
-                              for t in params))
+    dtype, np_dtype = _dtypes(cfg)
+    params, model_name = _init_params(graph, cfg, user_features, item_features, device, dtype)
+    params = LightGCNParams(*(t.requires_grad_(True) for t in params))
 
     _bf16 = cfg.compute.dtype == "bfloat16"
     _kernel = uses_kernels(cfg.compute, device)
-    propagation = choose_propagation(U, I, graph.train.n_edges, cfg.compute)
+    # no mesh resolved (``--mesh auto`` on one rank included): single device
+    propagation = choose_propagation(U, I, graph.train.n_edges, cfg.compute, single_chip=True)
     # the eval layout is chosen apart from the train propagation: the
     # kernel route and the rung train on a 1- or 2-byte incidence at
     # catalogs whose f32 (U, I) eval arrays would not fit
@@ -410,30 +423,7 @@ def train_lightgcn(
     val_counts = dense(user_pos_counts(U, graph.val))
     val_present = dense(users_present(U, graph.val))
 
-    # negative-candidate upper bound per split (docs/PARITY.md deviation 6)
-    if hp.neg_range == "reference":
-
-        def _split_neg_hi(es, split_name: str) -> int:
-            hi = 1 + int(max(np.asarray(es.users).max(initial=-1),
-                             np.asarray(es.items).max(initial=-1)))
-            if hi > I:
-                raise ValueError(
-                    f"neg_range='reference': the {split_name} split's max node id "
-                    f"{hi - 1} >= n_items={I}; the reference's own sampler would index "
-                    "items_emb out of range here (structured_negative_sampling bounds "
-                    "candidates by the max USER-or-item id). Use neg_range='catalog'."
-                )
-            return hi
-
-        neg_hi_train = _split_neg_hi(graph.train, "train")
-        neg_hi_val = _split_neg_hi(graph.val, "val")
-    elif hp.neg_range == "catalog":
-        neg_hi_train = neg_hi_val = I
-    else:
-        raise ValueError(
-            f"unknown hparams.neg_range {hp.neg_range!r} (expected 'catalog' or 'reference')"
-        )
-    val_reject_uid = hp.neg_range == "reference"
+    neg_hi_train, neg_hi_val, val_reject_uid = _negative_ranges(graph, hp)
 
     if propagation == "coo":
         graph_op = build_bucketed_incidence(
@@ -536,34 +526,275 @@ def train_lightgcn(
     if start_epoch > 0 and save_artifacts:
         _carry_history(cfg, model_name, history, start_epoch)
     with stage_timer(f"{model_name} training done ({hp.epochs} epochs)", log):
-        for epoch in range(start_epoch, hp.epochs):
-            loss = train_step(params, epoch, epoch_generator(hp.seed, epoch, device),
-                              graph_op, edge_users, edge_items, rejection)
-            if checkpoint_dir and checkpoint_every and epoch and epoch % checkpoint_every == 0:
-                save_train_state(checkpoint_dir, epoch, params, optimizer_state(optimizer, params))
-            if epoch % hp.epoch_per_eval != 0:
-                continue
-            vloss = val_loss(params, epoch_generator(hp.seed, hp.epochs + epoch, device))
-            p, r, n, h, i = eval_fn(params)
-            tl, vl = round(float(loss), 5), round(float(vloss), 5)
-            p, r, n = round(float(p), 5), round(float(r), 5), round(float(n), 5)
-            f1 = round(2 * p * r / (p + r), 5) if (p + r) else 0.0
-            h, i = round(float(h), 5), round(float(i), 5)
-            for name, v in zip(HISTORY_COLUMNS, (epoch, tl, vl, p, r, f1, n, h, i)):
-                history[name].append(v)
-            log.info(
-                "[Iteration %d/%d] train_loss: %s, val_loss: %s, val_precision@%d: %s, "
-                "val_recall@%d: %s, val_f1@%d: %s, val_NDCG@%d: %s, val_H@%d: %s, "
-                "val_I@%d: %s",
-                epoch, hp.epochs, tl, vl, cfg.k, p, cfg.k, r, cfg.k, f1, cfg.k, n,
-                cfg.k, h, cfg.k, i,
-            )
+        _train_epochs(
+            cfg, log, history, device, start_epoch,
+            lambda epoch, gen: train_step(params, epoch, gen, graph_op, edge_users, edge_items,
+                                          rejection),
+            lambda gen: val_loss(params, gen), lambda: eval_fn(params),
+            checkpoint_every if checkpoint_dir else 0,
+            lambda epoch: save_train_state(checkpoint_dir, epoch, params,
+                                           optimizer_state(optimizer, params)))
 
     params = LightGCNParams(params.user_emb.detach(), params.item_emb.detach())
-    if save_artifacts:
+    _save_artifacts(cfg, model_name, params, history, save_artifacts)
+    return TrainResult(params=params, history=history)
+
+
+def _dtypes(cfg: Config):
+    """(table torch dtype, numpy dtype of the host-built incidences)."""
+    if cfg.compute.dtype not in _TABLE_DTYPES:
+        raise ValueError(f"unknown compute.dtype {cfg.compute.dtype!r}")
+    dtype = _TABLE_DTYPES[cfg.compute.dtype]
+    return dtype, (np.float64 if dtype == torch.float64 else np.float32)
+
+
+def _init_params(graph, cfg: Config, user_features, item_features, device, dtype):
+    """(initial tables on ``device``, detached copies, model name): the
+    LightGCNOpti feature projection when both feature tables are given, else
+    LightGCN's N(0, 0.1^2), drawn on the CPU from ``hparams.seed``."""
+    hp = cfg.hparams
+    init_gen = torch.Generator().manual_seed(hp.seed)
+    if user_features is not None and item_features is not None:
+        params = init_lightgcn_opti(init_gen, user_features, item_features,
+                                    hp.embedding_dim, device, dtype)
+        model_name = "LightGCNOpti"
+    else:
+        params = init_lightgcn(init_gen, graph.n_users, graph.n_items, hp.embedding_dim,
+                               device, dtype)
+        model_name = "LightGCN"
+    return LightGCNParams(*(t.detach().clone().to(device, dtype) for t in params)), model_name
+
+
+def _negative_ranges(graph, hp):
+    """(train negatives' bound, val negatives' bound, reject the user's own
+    id among val candidates): the catalog, or with ``neg_range='reference'``
+    each split's max node id + 1 (``docs/PARITY.md`` deviation 6)."""
+    I = graph.n_items
+    if hp.neg_range == "reference":
+
+        def _split_neg_hi(es, split_name: str) -> int:
+            hi = 1 + int(max(np.asarray(es.users).max(initial=-1),
+                             np.asarray(es.items).max(initial=-1)))
+            if hi > I:
+                raise ValueError(
+                    f"neg_range='reference': the {split_name} split's max node id "
+                    f"{hi - 1} >= n_items={I}; the reference's own sampler would index "
+                    "items_emb out of range here (structured_negative_sampling bounds "
+                    "candidates by the max USER-or-item id). Use neg_range='catalog'."
+                )
+            return hi
+
+        return _split_neg_hi(graph.train, "train"), _split_neg_hi(graph.val, "val"), True
+    if hp.neg_range == "catalog":
+        return I, I, False
+    raise ValueError(
+        f"unknown hparams.neg_range {hp.neg_range!r} (expected 'catalog' or 'reference')"
+    )
+
+
+def _train_epochs(cfg: Config, log, history, device, start_epoch: int, step, val_loss, evaluate,
+                  checkpoint_every: int, checkpoint) -> None:
+    """The epoch loop of both trainers: ``step(epoch, generator) -> loss`` on
+    the epoch's own generator, ``checkpoint(epoch)`` every
+    ``checkpoint_every`` epochs (0: never), and every ``epoch_per_eval``
+    epochs ``val_loss(generator)`` on its generator and ``evaluate()``,
+    recorded into ``history``."""
+    hp = cfg.hparams
+    for epoch in range(start_epoch, hp.epochs):
+        loss = step(epoch, epoch_generator(hp.seed, epoch, device))
+        if checkpoint_every and epoch and epoch % checkpoint_every == 0:
+            checkpoint(epoch)
+        if epoch % hp.epoch_per_eval != 0:
+            continue
+        vloss = val_loss(epoch_generator(hp.seed, hp.epochs + epoch, device))
+        _record_eval(history, epoch, loss, vloss, evaluate(), cfg, log)
+
+
+def _record_eval(history, epoch, loss, vloss, metrics, cfg: Config, log) -> None:
+    """One eval row: the losses and the five metrics rounded to 5
+    decimals, F1 of the rounded P and R, appended and logged."""
+    p, r, n, h, i = metrics
+    tl, vl = round(float(loss), 5), round(float(vloss), 5)
+    p, r, n = round(float(p), 5), round(float(r), 5), round(float(n), 5)
+    f1 = round(2 * p * r / (p + r), 5) if (p + r) else 0.0
+    h, i = round(float(h), 5), round(float(i), 5)
+    for name, v in zip(HISTORY_COLUMNS, (epoch, tl, vl, p, r, f1, n, h, i)):
+        history[name].append(v)
+    log.info(
+        "[Iteration %d/%d] train_loss: %s, val_loss: %s, val_precision@%d: %s, "
+        "val_recall@%d: %s, val_f1@%d: %s, val_NDCG@%d: %s, val_H@%d: %s, "
+        "val_I@%d: %s",
+        epoch, cfg.hparams.epochs, tl, vl, cfg.k, p, cfg.k, r, cfg.k, f1, cfg.k, n,
+        cfg.k, h, cfg.k, i,
+    )
+
+
+def _save_artifacts(cfg: Config, model_name: str, params: LightGCNParams, history,
+                    save_artifacts: bool) -> None:
+    """The final tables' npz checkpoint and the history, on the writing
+    rank only."""
+    if save_artifacts and is_writer():
         cfg.ensure_dirs()
         save_checkpoint(os.path.join(cfg.model_path, f"{cfg.k}_{model_name}.npz"), params)
         _save_history(cfg, model_name, history)
+
+
+def train_lightgcn_on_mesh(
+    graph: InteractionGraph,
+    cfg: Config,
+    mesh: Mesh,
+    user_features: Optional[np.ndarray] = None,
+    item_features: Optional[np.ndarray] = None,
+    save_artifacts: bool = True,
+    checkpoint_dir: Optional[str] = None,
+    checkpoint_every: int = 0,
+) -> TrainResult:
+    """``train_lightgcn`` on a resolved (data, model) mesh, every rank one
+    call (``lgcnhs_tpu/train/trainer.py:552-633``): the same initial tables,
+    triples, BPR, Adam and lr schedule as one device, with
+
+    - the incidence (the factored int8 one on the ``dual_matmul`` route), the
+      train and val positives, the val incidence and the train interaction
+      padded and item-sharded, the tables row-sharded and padded (Adam's
+      moments follow them), the edges replicated at their true length;
+    - each epoch through ``make_sharded_train_step``, in the single-device
+      trainer's loop (``_train_epochs``);
+    - the val loss over the sharded forward, the eval's layer-0 scores
+      item-sharded and ranked by the distributed masked top-k, its metrics
+      read from the sharded arrays;
+    - ``unpad_params`` at the end: every rank returns the whole tables, on
+      the mesh's device; rank 0 alone writes the checkpoint and history.
+
+    With ``checkpoint_dir`` the state is saved whole (padded tables and
+    moments, gathered) by rank 0 and a resume cuts each rank's rows again.
+    Raises for a graph that takes the COO propagation and for
+    ``compute.coo_table_sharding`` (ROADMAP queue 1 item 7)."""
+    from lgcnhs_tpu_torch.parallel import sharding
+
+    hp = cfg.hparams
+    log = get_logger()
+    device = mesh.device
+    U, I = graph.n_users, graph.n_items
+    if cfg.compute.coo_table_sharding:
+        raise _not_ported("compute.coo_table_sharding (the table-sharded COO steps)", 7)
+    if choose_propagation(U, I, graph.train.n_edges, cfg.compute, single_chip=False) == "coo":
+        raise _not_ported("mesh training of a graph that takes the COO propagation "
+                          "(the sharded COO steps)", 7)
+    dtype, np_dtype = _dtypes(cfg)
+    params, model_name = _init_params(graph, cfg, user_features, item_features, "cpu", dtype)
+    _bf16 = cfg.compute.dtype == "bfloat16"
+    kernel = uses_kernels(cfg.compute, device) and _bf16 and fits_dual(hp.embedding_dim, device)
+    log.info("training %s on mesh %s (%s, %s)", model_name, mesh.shape, device,
+             "int8 item blocks through the dual_matmul CUDA kernel" if kernel
+             else f"dense {'bf16' if _bf16 else cfg.compute.dtype} item blocks")
+
+    plan = sharding.make_plan(mesh)
+    U_pad, I_pad = sharding.padded_catalog(plan, U, I)
+    train_es, val_es = unique_edges(graph.train), unique_edges(graph.val)
+    pos = pos_bool_matrix(U, I, graph.train)
+    if kernel:
+        (R8, du_inv, di_inv), train_pos, edge_users, edge_items = sharding.shard_train_inputs(
+            plan, binary_incidence_factors(U, I, graph.train), pos, train_es.users,
+            train_es.items)
+        # the kernel reads R's rows in 16-byte copies: the padded-stride
+        # copy of the rank's block, once for the run
+        R_blk = (pad_for_dual(R8), du_inv, di_inv)
+    else:
+        R_blk, train_pos, edge_users, edge_items = sharding.shard_train_inputs(
+            plan, normalized_bipartite(U, I, graph.train, dtype=np_dtype), pos,
+            train_es.users, train_es.items, r_dtype=torch.bfloat16 if _bf16 else dtype)
+
+    def cols(a, rows=U, fill=0):
+        return col_sharded(mesh, torch.from_numpy(sharding._pad2(a, rows, I_pad, fill)))
+
+    R_val = cols(normalized_bipartite(U, I, graph.val, dtype=np_dtype), U_pad).to(dtype)
+    val_pos = cols(pos_bool_matrix(U, I, graph.val), fill=False)
+    inter = cols(interaction_matrix(U, I, graph.train))
+    deg = row_sharded(mesh, torch.from_numpy(sharding._pad1(item_degrees(I, graph.train),
+                                                            I_pad)))
+    val_users = replicated(mesh, torch.from_numpy(val_es.users.astype(np.int64)))
+    val_items = replicated(mesh, torch.from_numpy(val_es.items.astype(np.int64)))
+    val_counts = replicated(mesh, user_pos_counts(U, graph.val))
+    val_present = replicated(mesh, users_present(U, graph.val))
+    neg_hi_train, neg_hi_val, val_reject_uid = _negative_ranges(graph, hp)
+    block = I_pad // mesh.shape[MODEL_AXIS]
+    group, n_model = mesh.group(MODEL_AXIS), mesh.shape[MODEL_AXIS]
+
+    params = LightGCNParams(*(t.requires_grad_(True) for t in sharding.shard_params(plan, params)))
+    optimizer = make_optimizer(hp, params)
+    train_step = sharding.make_sharded_train_step(plan, optimizer, hp, I, bf16_matmul=_bf16,
+                                                  neg_hi=neg_hi_train)
+
+    @torch.no_grad()
+    def val_loss(params, generator):
+        # every val edge exactly once (calValLoss, evaluation.py:68-77)
+        v_users, v_pos, v_neg = sample_negatives_for_edges(
+            generator, val_users, val_items, sharding.ShardedColumns(mesh, val_pos),
+            neg_hi_val, reject_user_ids=val_reject_uid)
+        return sharding._sharded_bpr(mesh, params, R_val, v_users, v_pos, v_neg, hp.epsilon,
+                                     hp.layers)
+
+    @torch.no_grad()
+    def eval_fn(params):
+        ue = sharding._gather_rows(params.user_emb.detach(), group, n_model)[:U]
+        rec = sharding._masked_topk_blocks(mesh, ue @ params.item_emb.detach().T,
+                                           train_pos[:U], cfg.k, block)
+        rows = torch.arange(U, device=device)[:, None].expand(U, cfg.k)
+        hits = sharding.ShardedColumns(mesh, val_pos)[rows, rec.long()].to(torch.float32)
+        p, r = metrics_ops.precision_recall_from_hits(hits, val_counts, val_present)
+        n = metrics_ops.ndcg_from_hits(hits, val_present)
+        h = metrics_ops.hamming_distance(rec, I)
+        return p, r, n, h, sharding._internal_similarity_blocks(mesh, rec, inter, deg)
+
+    def whole_state():
+        """(tables, Adam state) joined over the model axis: padded, whole."""
+        tables = LightGCNParams(*(sharding._gather_rows(t.detach(), group, n_model)
+                                  for t in params))
+        state = optimizer_state(optimizer, params)
+        return tables, {name: {"step": s["step"],
+                               **{m: sharding._gather_rows(s[m], group, n_model)
+                                  for m in ("exp_avg", "exp_avg_sq")}}
+                        for name, s in state.items()}
+
+    start_epoch = 0
+    restored = restore_train_state(checkpoint_dir, "cpu") if checkpoint_dir else None
+    if restored is not None:
+        last, saved, opt_state = restored
+        want = ((U_pad, hp.embedding_dim), (I_pad, hp.embedding_dim))
+        for table, value, shape in zip(params, saved, want):
+            if tuple(value.shape) != shape or value.dtype != table.dtype:
+                raise ValueError(
+                    f"checkpoint in {checkpoint_dir} holds a {tuple(value.shape)} "
+                    f"{value.dtype} table where this mesh trains {shape} {table.dtype} "
+                    "(padded to the model axis)")
+        with torch.no_grad():
+            for table, value in zip(params, saved):
+                table.copy_(row_sharded(mesh, value))
+        load_optimizer_state(optimizer, params, {
+            name: {"step": s["step"], **{m: row_sharded(mesh, s[m])
+                                         for m in ("exp_avg", "exp_avg_sq")}}
+            for name, s in opt_state.items()})
+        start_epoch = last + 1
+        log.info("resumed from checkpoint at epoch %d", last)
+
+    def checkpoint(epoch: int) -> None:
+        tables, state = whole_state()
+        if is_writer():
+            save_train_state(checkpoint_dir, epoch, tables, state)
+
+    history: Dict[str, List[float]] = {name: [] for name in HISTORY_COLUMNS}
+    if start_epoch > 0 and save_artifacts:
+        _carry_history(cfg, model_name, history, start_epoch)
+    with stage_timer(f"{model_name} training done ({hp.epochs} epochs)", log):
+        _train_epochs(
+            cfg, log, history, device, start_epoch,
+            lambda epoch, gen: train_step(params, epoch, gen, R_blk, edge_users, edge_items,
+                                          train_pos),
+            lambda gen: val_loss(params, gen), lambda: eval_fn(params),
+            checkpoint_every if checkpoint_dir else 0, checkpoint)
+
+    params = sharding.unpad_params(params, U, I, mesh)
+    _save_artifacts(cfg, model_name, params, history, save_artifacts)
     return TrainResult(params=params, history=history)
 
 

@@ -108,7 +108,7 @@ def test_algorithms_agree_with_dense():
 
 def test_sharded_choice_raises(monkeypatch):
     monkeypatch.setattr(tdiff, "DENSE_TRANSFER_BUDGET_BYTES", BUDGETS["sharded"])
-    with pytest.raises(ValueError, match="ROADMAP queue 1 item 7"):
+    with pytest.raises(ValueError, match="Run on a mesh \\(parallel.sharding.sharded_diffusion_scores"):
         tdiff.diffusion_scores_auto(torch.from_numpy(_inputs(0)), 0.6)
 
 

@@ -315,11 +315,65 @@ def test_choose_propagation_matches_jax():
 
 
 def test_unported_branches_raise_with_roadmap_pointers():
+    """A mesh of two ranks with no process group running: the ranks come
+    from the launcher, and the message names it."""
     _, tg = _graph_pair(7)
     base = tcfg.load_config(dataset="synthetic", overrides={"hparams.epochs": 1})
     cfg = base.replace(compute=base.compute.__class__(mesh_shape=(2, 1)))
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(ValueError, match="no process group is running.*torchrun"):
         ttrainer.train_lightgcn(tg, cfg, save_artifacts=False, device="cpu")
+
+
+@pytest.mark.parametrize("what", ["coo", "coo_table_sharding"])
+def test_mesh_coo_routes_raise_with_roadmap_pointers(tmp_path, what):
+    """The trainer's mesh function on a world-1 gloo mesh: a graph that
+    takes the COO propagation (``dense_threshold=1.0``), and
+    ``coo_table_sharding``, are the second half of queue 1 item 7."""
+    import torch.distributed as dist
+
+    from lgcnhs_tpu_torch.runtime.mesh import make_mesh
+
+    _, tg = _graph_pair(7)
+    compute = {"coo": {"dense_threshold": 1.0}, "coo_table_sharding": {
+        "coo_table_sharding": True}}[what]
+    base = tcfg.load_config(dataset="synthetic", overrides={"hparams.epochs": 1})
+    cfg = base.replace(compute=base.compute.__class__(**compute))
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path / 'store'}", world_size=1,
+                            rank=0)
+    try:
+        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 7"):
+            ttrainer.train_lightgcn_on_mesh(tg, cfg, make_mesh((1, 1)), save_artifacts=False)
+    finally:
+        dist.destroy_process_group()
+
+
+def test_auto_mesh_on_one_rank_keeps_the_bf16_dense_route(monkeypatch):
+    """``--mesh auto`` with one rank resolves to no mesh, so the trainer
+    prices the bf16 incidence at 2 bytes an entry, as JAX's trainer does
+    (``single_chip=mesh is None``): a bf16 graph between the bf16 and the f32
+    budgets (the 2-4 GB band, the budget shrunk to this graph) trains on
+    JAX's one-device route, dense, where the ``(1, 1)`` proxy says COO."""
+    _, tg = _graph_pair(7)
+    E = tg.train.n_edges
+    budget = 3.0 * U * I  # 2 bytes an entry fit it, 4 do not
+    monkeypatch.setattr(ttrainer, "DENSIFY_BUDGET_BYTES", budget)
+    monkeypatch.setattr(jtrainer, "DENSIFY_BUDGET_BYTES", budget)
+    base = tcfg.load_config(dataset="synthetic", overrides={"hparams.epochs": 1})
+    cfg = base.replace(compute=base.compute.__class__(dtype="bfloat16", mesh_shape=(0, 0)))
+    j_base = j_load_config(dataset="synthetic")
+    j_compute = j_base.compute.__class__(dtype="bfloat16", mesh_shape=(0, 0))
+    want = jtrainer.choose_propagation(U, I, E, j_compute, single_chip=True)
+    assert want == "dense" != ttrainer.choose_propagation(U, I, E, cfg.compute)
+    routes = []
+    choose = ttrainer.choose_propagation
+
+    def spy(*args, **kwargs):
+        routes.append(choose(*args, **kwargs))
+        return routes[-1]
+
+    monkeypatch.setattr(ttrainer, "choose_propagation", spy)
+    ttrainer.train_lightgcn(tg, cfg, save_artifacts=False, device="cpu")
+    assert routes == [want]
 
 
 def test_training_defaults_to_the_card(monkeypatch):

@@ -76,3 +76,57 @@ def pin_text_method(monkeypatch, method="hash"):
         pinned = functools.partial(features.text_embeddings, method=method)
         for module in modules:
             monkeypatch.setattr(module, "text_embeddings", pinned)
+
+
+class MeshRun:
+    """One CPU mesh run of ``tests/torch_mesh_worker.py``: D x M gloo ranks
+    started at once (one thread each, a file store under ``tmp``), running
+    ``suite`` on ``inputs``. ``results()`` waits for every rank and returns
+    their output dicts in rank order; a rank that fails or passes
+    ``timeout`` seconds fails the run (and stops the others)."""
+
+    def __init__(self, suite, mesh_shape, inputs, tmp, timeout=240):
+        import os
+        import subprocess
+        import sys
+
+        here = os.path.dirname(os.path.abspath(__file__))
+        os.makedirs(tmp, exist_ok=True)
+        self.tmp, self.timeout = str(tmp), timeout
+        self.world = int(mesh_shape[0]) * int(mesh_shape[1])
+        in_npz = os.path.join(self.tmp, "inputs.npz")
+        np.savez(in_npz, mesh=np.asarray(mesh_shape), **inputs)
+        env = dict(os.environ, OMP_NUM_THREADS="1", MKL_NUM_THREADS="1",
+                   PYTHONPATH=os.path.dirname(here) + os.pathsep
+                   + os.environ.get("PYTHONPATH", ""))
+        self.procs = [
+            subprocess.Popen(
+                [sys.executable, os.path.join(here, "torch_mesh_worker.py"), str(rank),
+                 str(self.world), os.path.join(self.tmp, "store"), suite, in_npz, self.tmp],
+                env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for rank in range(self.world)
+        ]
+
+    def results(self):
+        import os
+        import subprocess
+
+        logs = []
+        try:
+            for p in self.procs:
+                out, err = p.communicate(timeout=self.timeout)
+                logs.append((p.returncode, out, err))
+        except subprocess.TimeoutExpired:
+            raise AssertionError(f"mesh run passed {self.timeout} s")
+        finally:
+            for p in self.procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        for rank, (rc, out, err) in enumerate(logs):
+            assert rc == 0, f"rank {rank} failed:\n{err[-4000:]}"
+        outs = []
+        for rank in range(self.world):
+            with np.load(os.path.join(self.tmp, f"{rank}.npz")) as data:
+                outs.append({name: data[name] for name in data.files})
+        return outs
