@@ -146,7 +146,7 @@ neither JAX nor ``lgcnhs_tpu``. Phases:
    word2vec with its steps and ms a step on the card), each ``cli/main``
    run's Step 1-3 seconds and peak device memory.
 
-9. The mesh (``mesh_phase``, last): a world-1 NCCL process group from a
+9. The mesh (``mesh_phase``): a world-1 NCCL process group from a
    file store and ``make_mesh((1, 1))`` (the card machine has one card:
    NCCL takes no two ranks on one GPU, so the mesh runs at world size 1
    here and no scaling is measured). At the prod preset, D=64, k=100, each
@@ -167,6 +167,31 @@ neither JAX nor ``lgcnhs_tpu``. Phases:
    and single-device ms (the collectives' cost at world size 1). Phase 5
    also times matmul+topk at k=1000 over the 49,410 items beside the
    retrieval kernel.
+10. The mesh's large-graph half (``mesh_large_phase``, last): a world-1
+   NCCL group again and ``make_mesh((1, 1))``, on phase 6's large graph
+   (49,933 x 30,000) at the prod preset, D=64, k=100 (cut from the
+   multi-GPU meshes it serves to the one card, nothing else): (a)
+   ``train_lightgcn_on_mesh`` against ``train_lightgcn``'s COO route, 20
+   f32 epochs from one seed with one CSR evaluation (the graph takes COO
+   on a mesh by itself at the prod preset, asserted; history within
+   ``TWIN_LOSS_TOL``, tables within ``TWIN_TABLE_TOL``; no ``dual_matmul``,
+   one retrieval launch a user chunk at the distributed CSR site, counted
+   apart as ``DISTRIBUTED``); (b) one ``make_sharded_coo_train_step``
+   step in the bucketed and the segment layout on the same triples,
+   within ``LAYOUT_REL_TOL`` of scale, then both layouts' and the
+   single-device COO step's ms a step, in turns; (c) the table-sharded
+   plan against (a)'s replicated one, history within
+   ``TABLE_SHARDED_HISTORY_TOL``; (d) ``make_distributed_csr_masked_topk``
+   against ``chunked_masked_topk`` at k=100 (ids identical, one launch a
+   chunk, both timed), and the kernel at this site's chunk against its
+   twin; (e) resume (8 epochs with a checkpoint at 7, on to 14, against
+   14) on the mesh COO route, the single-device COO route and the
+   bf16-dense rung, tables within ``RESUME_TABLE_TOL`` (these runs'
+   evaluations skip I@k, a host Gram that writes no table); (f)
+   ``cli/scaling --meshes 1``, dense and ``--coo``: one row each,
+   efficiency 1.0 (each rung its own NCCL process group). Launch counts
+   set to 0 before each run and read after; each row's mesh and
+   single-device ms, the CSR evaluation's retrieval and I@k seconds.
 
 Prints one PASS/FAIL line per check, then (all passed) the kernel JSON line,
 the ``nvidia-smi`` name/power-limit line, and the final
@@ -271,6 +296,19 @@ MESH_SWEEP_RTOL = 1e-5
 # the retrieval kernel's launches inside ops/scalable.chunked_masked_topk,
 # counted apart from its other launches (phases 6 and 8)
 CHUNKED = "fused_topk_retrieval@chunked_masked_topk"
+# phase 10, the mesh on the large graph: the retrieval kernel's launches made
+# by the mesh's CSR evaluation (parallel/sharding.make_distributed_csr_masked_topk),
+# counted apart from the other two sites
+DISTRIBUTED = "fused_topk_retrieval@distributed_csr_masked_topk"
+# (a) and (c) train TWIN_EPOCHS with one CSR evaluation; (b) one step of each
+# layout on the same triples: the same sums in another grouping, within
+# LAYOUT_REL_TOL of scale; (c) the table-sharded plan against the replicated
+# one within the dry run's 2e-5 (__graft_entry__.py:152-161); (e) resume,
+# RESUME_STOP_10 epochs with a checkpoint at RESUME_EVERY_10, then on to
+# RESUME_EPOCHS_10, within RESUME_TABLE_TOL of one run
+LAYOUT_REL_TOL = 1e-5
+TABLE_SHARDED_HISTORY_TOL = 2e-5
+RESUME_EPOCHS_10, RESUME_STOP_10, RESUME_EVERY_10 = 14, 8, 7
 W2V_STORY_DOCS = 300  # the CPU side of the storyline check trains on these
 # Douban: 160,000 users at 6.5 ratings each, the ratio of the public dump
 # (~4.2 M ratings by ~640,000 users); the preset keeps the users whose rating
@@ -1449,6 +1487,345 @@ def mesh_phase(check, dev, smi, env):
         dist.destroy_process_group()
         shutil.rmtree(store, ignore_errors=True)
     return {"launches": launches, "rows": rows}
+
+
+def mesh_large_phase(check, dev, smi, env):
+    """Phase 10: the mesh's large-graph half on NCCL at world size 1, on
+    phase 6's large graph at the prod preset (module docstring). Returns
+    its launches by kernel and call site, its rows and the measurements of
+    the retrieval kernel at its distributed call site."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from lgcnhs_tpu_torch import config as tcfg
+    from lgcnhs_tpu_torch.cli import scaling
+    from lgcnhs_tpu_torch.data.datasets import load_dataset
+    from lgcnhs_tpu_torch.data.graph import build_graph, unique_edges
+    from lgcnhs_tpu_torch.models.lightgcn import LightGCNParams
+    from lgcnhs_tpu_torch.ops import scalable
+    from lgcnhs_tpu_torch.ops.cuda import retrieval as rt
+    from lgcnhs_tpu_torch.ops.propagation import build_bucketed_incidence, edge_gcn_norm
+    from lgcnhs_tpu_torch.ops.topk import MASK_VALUE
+    from lgcnhs_tpu_torch.parallel import sharding
+    from lgcnhs_tpu_torch.runtime.mesh import backend_for, make_mesh
+    from lgcnhs_tpu_torch.train import trainer
+
+    kernels = env["kernels"]
+    launches = dict.fromkeys([*kernels, CHUNKED, DISTRIBUTED], 0)
+    rows = []
+    sizes = {"synthetic_users": LARGE_USERS, "synthetic_items": LARGE_ITEMS,
+             "synthetic_interactions": LARGE_INTERACTIONS}
+    work = tempfile.mkdtemp(prefix="chip_smoke_mesh_large_", dir=os.path.join(ROOT, "artifacts"))
+
+    def cfg_for(**over):
+        return tcfg.load_config(env="prod", dataset="synthetic", model="LightGCNOpti",
+                                workdir=work, overrides={**sizes, **over})
+
+    splits, uf, itf = load_dataset(cfg_for())
+    g = build_graph(splits)
+    U, I, E = g.n_users, g.n_items, g.train.n_edges
+    n_chunks = -(-U // scalable.chunk_users(U, I, 1))
+    probe = {"retrieval_s": [], "iak_s": []}
+
+    def timed(fn, into):
+        def call(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            into.append(time.perf_counter() - t0)
+            return out
+        return call
+
+    def counted(fn):
+        """fn() with its launches counted (``count_launches``; the mesh's CSR
+        evaluation's retrieval launches apart, under ``DISTRIBUTED``), its
+        CSR retrieval and I@k host seconds (the card synchronized around each
+        call); phase 10's main-path launches."""
+        saved = (sharding.chunked_masked_topk, trainer.internal_similarity_csr,
+                 trainer.chunked_masked_topk)
+        inside = [0]
+        probe["retrieval_s"], probe["iak_s"] = [], []
+        timed_topk = timed(saved[0], probe["retrieval_s"])
+        trainer.chunked_masked_topk = timed(saved[2], probe["retrieval_s"])
+
+        def site(*a, **kw):
+            before = rt.fused_topk_retrieval.launches
+            try:
+                return timed_topk(*a, **kw)
+            finally:
+                inside[0] += rt.fused_topk_retrieval.launches - before
+
+        sharding.chunked_masked_topk = site
+        trainer.internal_similarity_csr = timed(saved[1], probe["iak_s"])
+        try:
+            t0 = time.perf_counter()
+            out, got = count_launches(kernels, fn)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+        finally:
+            (sharding.chunked_masked_topk, trainer.internal_similarity_csr,
+             trainer.chunked_masked_topk) = saved
+        got["fused_topk_retrieval"] -= inside[0]
+        got[DISTRIBUTED] = inside[0]
+        for name, n in got.items():
+            launches[name] += n
+        return out, got, secs
+
+    def row(name, shape, mesh_ms, single_ms, **extra):
+        rows.append({"name": name, "shape": shape, "mesh_ms": mesh_ms, "single_ms": single_ms,
+                     **extra})
+        print(f"[phase 10] {name} {shape}: mesh {mesh_ms} ms, single device {single_ms} ms "
+              f"{json.dumps(extra)} [{smi}]", flush=True)
+
+    def gaps(a, b):
+        """(max history gap, max table gap) of two TrainResults."""
+        hist = max(abs(x - y) for col in a.history for x, y in zip(a.history[col],
+                                                                    b.history[col]))
+        return hist, max((x - y).abs().max().item() for x, y in zip(a.params, b.params))
+
+    no_kernel = dict.fromkeys(launches, 0)
+    out = {}
+    store = tempfile.mkdtemp(prefix="chip_smoke_nccl10_", dir=os.path.join(ROOT, "artifacts"))
+    torch.cuda.set_device(dev)
+    dist.init_process_group(backend_for(dev), world_size=1, rank=0,
+                            init_method=f"file://{os.path.join(store, 'store')}")
+    try:
+        mesh = make_mesh((1, 1))
+        check("phase 10: make_mesh((1, 1)) on a world-1 NCCL group",
+              dist.get_backend() == "nccl" and mesh.device == dev, repr(mesh))
+        prod = cfg_for()
+        check("phase 10: on a mesh the large graph takes the COO route at the prod preset "
+              "(no bf16 expansion), on one device the dense side",
+              trainer.choose_propagation(U, I, E, prod.compute, single_chip=False) == "coo"
+              and trainer.choose_propagation(U, I, E, prod.compute, single_chip=True) == "dense")
+
+        # (a) the mesh trainer against the single-device COO route, one seed
+        cfg = cfg_for(**{"compute.dtype": "float32", "hparams.epochs": TWIN_EPOCHS,
+                         "hparams.epoch_per_eval": TWIN_EPOCHS})
+        single, got_s, single_s = counted(lambda: trainer.train_lightgcn(
+            g, cfg, uf, itf, save_artifacts=False, device=dev))
+        single_split = dict(probe)
+        meshed, got_m, mesh_s = counted(lambda: trainer.train_lightgcn_on_mesh(
+            g, cfg, mesh, uf, itf, save_artifacts=False))
+        mesh_split = dict(probe)
+        check(f"phase 10 (a): the single-device COO route: {n_chunks} chunked retrieval "
+              "launches and nothing else", got_s == {**no_kernel, CHUNKED: n_chunks}, f"{got_s}")
+        check(f"phase 10 (a): mesh training launched no dual_matmul and {n_chunks} retrieval "
+              "launches at the distributed CSR site, nothing else",
+              got_m == {**no_kernel, DISTRIBUTED: n_chunks}, f"{got_m}")
+        hist_gap, table_gap = gaps(single, meshed)
+        check(f"phase 10 (a): mesh COO training tracks the single-device COO route over "
+              f"{TWIN_EPOCHS} epochs: history", hist_gap <= TWIN_LOSS_TOL
+              and single.history["iters"] == meshed.history["iters"] == [0],
+              f"max gap {hist_gap:.3e}, tolerance {TWIN_LOSS_TOL:g}")
+        check(f"phase 10 (a): mesh COO training tracks the single-device COO route over "
+              f"{TWIN_EPOCHS} epochs: tables", table_gap <= TWIN_TABLE_TOL,
+              f"max gap {table_gap:.3e}, tolerance {TWIN_TABLE_TOL:g}")
+        row(f"train_lightgcn COO ({TWIN_EPOCHS} epochs, 1 CSR eval)", [U, I, 64],
+            mesh_s * 1e3, single_s * 1e3, history_gap=hist_gap, table_gap=table_gap,
+            mesh_retrieval_s=mesh_split["retrieval_s"], mesh_iak_s=mesh_split["iak_s"],
+            single_retrieval_s=single_split["retrieval_s"], single_iak_s=single_split["iak_s"],
+            launches=got_m)
+        torch.cuda.empty_cache()
+
+        # (b) one step of each layout on the same triples, then their ms a step
+        hp = cfg.hparams
+        te = unique_edges(g.train)
+        eu_t = torch.from_numpy(te.users.astype(np.int64)).to(dev)
+        ei_t = torch.from_numpy(te.items.astype(np.int64)).to(dev)
+        rowptr, cols = scalable.user_csr(U, te)
+        keys = scalable.csr_keys(rowptr, cols, dev)
+        norm = edge_gcn_norm(eu_t, ei_t, U, I)
+        plan = sharding.make_plan(mesh)
+        t0 = time.perf_counter()
+        se = {"bucketed": sharding.shard_bucketed_incidence(plan, te.users, te.items,
+                                                            norm.cpu().numpy(), U, I)}
+        build_s = {"bucketed": time.perf_counter() - t0}
+        t0 = time.perf_counter()
+        se["segment"] = sharding.shard_coo_edges(plan, te.users, te.items, norm)
+        build_s["segment"] = time.perf_counter() - t0
+        p_init = trainer._init_params(g, cfg, uf, itf, "cpu", torch.float32)[0]
+        runs = {}
+        for layout in ("bucketed", "segment"):
+            params = LightGCNParams(*(t.to(dev, copy=True).requires_grad_(True) for t in p_init))
+            step = sharding.make_sharded_coo_train_step(plan, trainer.make_optimizer(hp, params),
+                                                        hp, U, I, layout=layout)
+            loss = step(params, 0, trainer.epoch_generator(hp.seed, 0, dev), se[layout], eu_t,
+                        ei_t, keys)
+            runs[layout] = [step, params, loss.item(), 1, (se[layout], eu_t, ei_t, keys)]
+        params_1 = LightGCNParams(*(t.to(dev, copy=True).requires_grad_(True) for t in p_init))
+        binc = build_bucketed_incidence(te.users, te.items, norm.cpu().numpy(), U, I, device=dev)
+        runs["single"] = [trainer.make_coo_train_step(trainer.make_optimizer(hp, params_1), hp, I),
+                          params_1, None, 0, (binc, eu_t, ei_t, keys)]
+        (_, pb, lb, _, _), (_, ps, ls, _, _) = runs["bucketed"], runs["segment"]
+        scale = max(t.abs().max().item() for t in pb)
+        step_gap = max((a - b).abs().max().item() for a, b in zip(pb, ps)) / scale
+        loss_gap = abs(lb - ls) / abs(lb)
+        check(f"phase 10 (b): one step of the segment layout within {LAYOUT_REL_TOL:g} of scale "
+              "of the bucketed layout's (loss and tables)",
+              loss_gap <= LAYOUT_REL_TOL and step_gap <= LAYOUT_REL_TOL,
+              f"loss {loss_gap:.3e}, tables {step_gap:.3e}")
+
+        def steps(name, n):
+            run = runs[name]
+            step, params, args = run[0], run[1], run[4]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(n):
+                step(params, run[3], trainer.epoch_generator(hp.seed, run[3], dev), *args)
+                run[3] += 1
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) * 1e3 / n
+
+        ms = {name: [] for name in runs}
+        for name in ("single", "bucketed", "segment"):
+            steps(name, 3)
+        for name in ("single", "bucketed", "segment", "segment", "bucketed", "single"):
+            ms[name].append(steps(name, 10))
+        for layout in ("bucketed", "segment"):
+            row(f"sharded COO step, {layout} layout (B={hp.batch_size})", [U, I, 64, E],
+                float(np.mean(ms[layout])), float(np.mean(ms["single"])), runs=ms[layout],
+                single_runs=ms["single"], se_build_s=build_s[layout],
+                first_step_loss_gap=loss_gap, first_step_table_gap=step_gap)
+        del runs, se, binc, params_1, p_init
+        torch.cuda.empty_cache()
+
+        # (c) the table-sharded plan against the replicated plan of (a)
+        cfg_ts = cfg_for(**{"compute.dtype": "float32", "hparams.epochs": TWIN_EPOCHS,
+                            "hparams.epoch_per_eval": TWIN_EPOCHS,
+                            "compute.coo_table_sharding": True})
+        sharded, got_t, ts_s = counted(lambda: trainer.train_lightgcn_on_mesh(
+            g, cfg_ts, mesh, uf, itf, save_artifacts=False))
+        ts_hist, ts_table = gaps(meshed, sharded)
+        check(f"phase 10 (c): the table-sharded plan's history within "
+              f"{TABLE_SHARDED_HISTORY_TOL:g} of the replicated plan's over {TWIN_EPOCHS} epochs",
+              ts_hist <= TABLE_SHARDED_HISTORY_TOL and got_t == {**no_kernel,
+                                                                  DISTRIBUTED: n_chunks},
+              f"max gap {ts_hist:.3e}, tables {ts_table:.3e}, launches {got_t}")
+        row(f"train_lightgcn COO table-sharded vs replicated ({TWIN_EPOCHS} epochs)", [U, I, 64],
+            ts_s * 1e3, mesh_s * 1e3, history_gap=ts_hist, table_gap=ts_table, launches=got_t,
+            note="single_ms is the replicated mesh plan's")
+        del sharded
+        torch.cuda.empty_cache()
+
+        # (d) the mesh CSR evaluation against chunked_masked_topk, k=100
+        ue, ie = meshed.params
+        run = sharding.make_distributed_csr_masked_topk(mesh, rowptr, cols, U)
+        want_ids = scalable.chunked_masked_topk(ue, ie, rowptr, cols, K_SLICE)
+        got_ids, got_d, _ = counted(lambda: run(ue, ie, K_SLICE))
+        check(f"phase 10 (d): make_distributed_csr_masked_topk ids identical to "
+              f"chunked_masked_topk at k={K_SLICE}, {n_chunks} launches",
+              torch.equal(got_ids, want_ids) and got_d == {**no_kernel, DISTRIBUTED: n_chunks},
+              f"{int((got_ids != want_ids).sum())} mismatches, launches {got_d}")
+
+        def host_ms(fn, reps=3):
+            times = []
+            for _ in range(reps):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            return sorted(times)[reps // 2]
+
+        ms_d = host_ms(lambda: run(ue, ie, K_SLICE))
+        ms_c = host_ms(lambda: scalable.chunked_masked_topk(ue, ie, rowptr, cols, K_SLICE))
+        ms_d2 = host_ms(lambda: run(ue, ie, K_SLICE))
+        row(f"make_distributed_csr_masked_topk vs chunked_masked_topk k={K_SLICE}",
+            [U, I, 64, K_SLICE], (ms_d + ms_d2) / 2, ms_c, mesh_runs=[ms_d, ms_d2],
+            chunks=n_chunks)
+        # the kernel at this site's shapes: the first chunk of the rank's block
+        C = scalable.chunk_users(U, I, 1)
+        seen0 = scalable.csr_rows_mask(rowptr, torch.from_numpy(cols.astype(np.int64)).to(dev),
+                                       0, C, I)
+        chunk_in = (ue[:C].contiguous(), ie.contiguous(), seen0, K_SLICE)
+        got_k, want_k = rt.fused_topk_retrieval(*chunk_in), rt.fused_topk_retrieval_ref(*chunk_in)
+        D = ue.shape[1]
+
+        def composition():
+            return torch.topk(torch.matmul(chunk_in[0], ie.T).masked_fill_(seen0, MASK_VALUE),
+                              K_SLICE, dim=1)
+
+        out["site"] = {
+            "shape": [C, I, D, K_SLICE],
+            "max_abs_err": (got_k[1] - want_k[1]).abs().max().item(),
+            "ids_identical": bool(torch.equal(got_k[0], want_k[0])),
+            "ms": median_ms(torch, lambda: rt.fused_topk_retrieval(*chunk_in), 10),
+            "plain_ms": median_ms(torch, lambda: rt.fused_topk_retrieval_ref(*chunk_in), 10),
+            "matmul_topk_ms": median_ms(torch, composition, 10),
+            "bound": bound(4 * (C + I) * D + C * I + 8 * C * K_SLICE, 2 * C * I * D),
+        }
+        print(f"[phase 10] fused_topk_retrieval at the distributed CSR site: "
+              f"{json.dumps(out['site'])} [{smi}]", flush=True)
+        del seen0, got_k, want_k, meshed, single, ue, ie
+        torch.cuda.empty_cache()
+
+        # (e) resume: stopped after a checkpoint and resumed, against one run,
+        # on the mesh COO route, the single-device COO route and the rung.
+        # These runs' evaluations (epoch 0) skip I@k: its host Gram takes
+        # ~5 s an evaluation and reads the tables, writes none.
+        resume_rows = {}
+        saved_iak = trainer.internal_similarity_csr
+        trainer.internal_similarity_csr = lambda *a, **kw: 0.0
+        try:
+            routes = {
+                "mesh COO": ({"compute.dtype": "float32"},
+                             lambda c, **kw: trainer.train_lightgcn_on_mesh(
+                                 g, c, mesh, uf, itf, save_artifacts=False, **kw)),
+                "single-device COO": ({"compute.dtype": "float32"},
+                                      lambda c, **kw: trainer.train_lightgcn(
+                                          g, c, uf, itf, save_artifacts=False, device=dev, **kw)),
+                "bf16-dense rung": ({"compute.use_pallas": False},
+                                    lambda c, **kw: trainer.train_lightgcn(
+                                        g, c, uf, itf, save_artifacts=False, device=dev, **kw)),
+            }
+            for label, (over, train) in routes.items():
+                ckpt = os.path.join(work, "ckpt_" + label.replace(" ", "_"))
+
+                def resume_cfg(epochs):
+                    return cfg_for(**over, **{"hparams.epochs": epochs,
+                                              "hparams.epoch_per_eval": RESUME_EPOCHS_10})
+
+                t0 = time.perf_counter()
+                full, got_f, _ = counted(lambda: train(resume_cfg(RESUME_EPOCHS_10)))
+                counted(lambda: train(resume_cfg(RESUME_STOP_10), checkpoint_dir=ckpt,
+                                      checkpoint_every=RESUME_EVERY_10))
+                resumed, got_r, _ = counted(lambda: train(resume_cfg(RESUME_EPOCHS_10),
+                                                          checkpoint_dir=ckpt,
+                                                          checkpoint_every=RESUME_EVERY_10))
+                gap = max((a - b).abs().max().item() for a, b in zip(full.params, resumed.params))
+                resume_rows[label] = {"table_gap": gap, "seconds": time.perf_counter() - t0,
+                                      "resumed_launches": got_r}
+                check(f"phase 10 (e): resume on the {label} route ({RESUME_STOP_10} epochs, a "
+                      f"checkpoint at {RESUME_EVERY_10}, on to {RESUME_EPOCHS_10}): tables within "
+                      f"{RESUME_TABLE_TOL:g} of one run", gap <= RESUME_TABLE_TOL,
+                      f"max gap {gap:.3e}, resumed run's launches {got_r}")
+                del full, resumed
+                torch.cuda.empty_cache()
+        finally:
+            trainer.internal_similarity_csr = saved_iak
+        print(f"[phase 10] (e) resume {json.dumps(resume_rows)} [{smi}]", flush=True)
+        out["resume"] = resume_rows
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+        shutil.rmtree(work, ignore_errors=True)
+
+    # (f) cli/scaling on one card: each rung its own NCCL process group
+    torch.cuda.empty_cache()
+    for flags in ([], ["--coo"]):
+        t0 = time.perf_counter()
+        got = scaling.main(["--meshes", "1", "--steps", "10", *flags])
+        secs = time.perf_counter() - t0
+        check(f"phase 10 (f): cli/scaling --meshes 1 {' '.join(flags)}: one row, efficiency 1.0",
+              len(got) == 1 and got[0]["devices"] == 1 and got[0]["efficiency"] == 1.0
+              and got[0]["examples_per_sec"] > 0, f"{got} in {secs:.2f} s")
+        rows.append({"name": f"cli/scaling --meshes 1 {' '.join(flags)}".strip(), "rows": got,
+                     "host_s": secs})
+    out.update(launches=launches, rows=rows)
+    return out
 
 
 def ingestion_phase(check, dev, smi, clock):
@@ -2889,6 +3266,35 @@ def main() -> int:
         for name in ("dual_matmul", "fused_topk_retrieval"):
             check(f"phase 9 launched {name} on the mesh path", phase9["launches"][name] > 0,
                   f"{phase9['launches'][name]} launches")
+
+    # -- 10. the mesh's large-graph half at world size 1 ---------------------
+    print(f"[phase 10] the mesh on the large graph at world size 1 on {smi}", flush=True)
+    t0 = time.perf_counter()
+    phase10 = check.guard("mesh large graph", mesh_large_phase, check, dev, smi,
+                          {"kernels": main_kernels})
+    if phase10:
+        print(f"[phase 10] {time.perf_counter() - t0:.1f} s; launches {phase10['launches']}",
+              flush=True)
+        print(f"[phase 10] rows {json.dumps(phase10['rows'])}", flush=True)
+        site = phase10["site"]
+        report.append({
+            "name": DISTRIBUTED, "route": "cuda",
+            "source": "lgcnhs_tpu_torch/ops/cuda/retrieval.cu",
+            "replaces": "lgcnhs_tpu/ops/pallas/retrieval.py:110",
+            "call_site": "lgcnhs_tpu/parallel/sharding.py:938",
+            "launches": phase10["launches"][DISTRIBUTED], "max_abs_err": site["max_abs_err"],
+            "ms": site["ms"], "plain_ms": site["plain_ms"], "bound_ms": site["bound"][0],
+            "bound_by": site["bound"][1], "library_ms": None,
+            "matmul_topk_ms": site["matmul_topk_ms"], "shape": site["shape"],
+        })
+        for row in report:
+            row["phase10_launches"] = phase10["launches"][row["name"]]
+        check(f"phase 10 launched fused_topk_retrieval at {DISTRIBUTED}",
+              phase10["launches"][DISTRIBUTED] > 0,
+              f"{phase10['launches'][DISTRIBUTED]} launches")
+        check(f"phase 10: the retrieval kernel at the distributed CSR site: ids identical to "
+              "its plain twin on the first chunk", site["ids_identical"],
+              f"max_abs_err {site['max_abs_err']:.3e}")
 
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
     if check.failures:

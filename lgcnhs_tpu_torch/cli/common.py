@@ -13,12 +13,10 @@ at a directory of raw dataset files (ingested by ``data/datasets.py``),
 with ``--device cpu`` the ranks are CPU processes on gloo);
 ``distributed_run`` starts and ends the process group, and
 ``load_pipeline`` loads the data on rank 0 and hands it to the others.
-Flags left out, and why:
-
-- ``--platform``, ``--profile``, ``--scan-chunk``: JAX-only (the platform
-  pin, ``jax.profiler``, the ``lax.scan`` chunking);
-- ``--coo-table-sharding``: the table-sharded COO steps are the second
-  half of ROADMAP queue 1 item 7.
+``--coo-table-sharding`` row-shards the tables on a mesh that trains a
+graph on the COO route. Flags left out: ``--platform``, ``--profile`` and
+``--scan-chunk``, JAX-only (the platform pin, ``jax.profiler``, the
+``lax.scan`` chunking).
 """
 from __future__ import annotations
 
@@ -106,6 +104,13 @@ def base_parser(description: str) -> argparse.ArgumentParser:
         default="cuda",
         help="run on the CUDA card (default; raises without one) or on the CPU",
     )
+    p.add_argument(
+        "--coo-table-sharding",
+        action="store_true",
+        help="mesh x COO regime: row-shard the embedding tables + optimizer state over the "
+        "model axis (~1/n_model persistent table bytes per device) instead of replicating; "
+        "minibatch rows exchanged shard-by-shard. Requires --mesh and a graph on the COO path",
+    )
     p.add_argument("--no-cache", action="store_true", help="ignore cached artifacts")
     return p
 
@@ -132,6 +137,8 @@ def config_from_args(args: argparse.Namespace) -> Config:
         overrides["hparams.neg_range"] = args.neg_range
     if args.dtype is not None:
         overrides["compute.dtype"] = args.dtype
+    if args.coo_table_sharding:
+        overrides["compute.coo_table_sharding"] = True
     if args.quantile is not None:
         overrides["preprocessing.quantile_start"] = args.quantile[0]
         overrides["preprocessing.quantile_end"] = args.quantile[1]

@@ -21,7 +21,9 @@ On a mesh, one process a device:
   torchrun --nproc-per-node N -m lgcnhs_tpu_torch.cli.main --mesh 1,N ...
 (``--device cpu``: N CPU processes on gloo). Every rank runs the pipeline
 (training, the item-sharded ranking and the evaluation); rank 0 alone
-writes the artifacts and the log file and prints the metric line.
+writes the artifacts and the log file and prints the metric line. A graph
+on the COO route trains with its edge list sharded over the ranks;
+``--coo-table-sharding`` also row-shards its tables and Adam's state.
 """
 from __future__ import annotations
 

@@ -21,9 +21,13 @@ and the final embedding is the mean over layers 0..K
   gather and scatter costs (``docs/PERF.md``, "Large-graph (COO)
   training"); it is ported for parity, arrays identical to JAX's.
 
-The sorted-segment flavor (``build_edge_ordering``, ``make_coo_propagator``)
-serves only the JAX mesh "segment" layout and waits for the mesh port
-(ROADMAP queue 1 item 7).
+- sorted segments (``build_edge_ordering``, ``lightgcn_propagate_coo_sorted``):
+  the edge list kept sorted by user and by item, each node's messages
+  summed as one contiguous segment by ``torch.segment_reduce`` in edge
+  order (a fixed order on the CPU and the card), with the self-adjoint
+  backward; the mesh's "segment" layout
+  (``parallel/sharding._coo_propagate_sharded``) runs it on each rank's
+  edge block.
 """
 from __future__ import annotations
 
@@ -92,7 +96,7 @@ def lightgcn_propagate_coo(
         return (msg_u.index_add_(0, edge_users, x_i[edge_items] * w),
                 msg_i.index_add_(0, edge_items, x_u[edge_users] * w))
 
-    return _layer_mean(pair, user_emb, item_emb, n_layers)
+    return layer_mean(pair, user_emb, item_emb, n_layers)
 
 
 class SelfAdjointPair(torch.autograd.Function):
@@ -113,9 +117,10 @@ class SelfAdjointPair(torch.autograd.Function):
         return (None, *ctx.pair_fn(g_u, g_i))
 
 
-def _layer_mean(pair, user_emb, item_emb, n_layers: int):
+def layer_mean(pair, user_emb, item_emb, n_layers: int):
     """K applications of the propagation pair and the layer-stack mean
-    (``model/LightGCN/model.py:60-72``), shared by the edge-list layouts."""
+    (``model/LightGCN/model.py:60-72``), shared by the edge-list layouts
+    on one device and on the mesh."""
     eu, ei = user_emb, item_emb
     acc_u, acc_i = eu, ei
     for _ in range(n_layers):
@@ -124,6 +129,82 @@ def _layer_mean(pair, user_emb, item_emb, n_layers: int):
         acc_i = acc_i + ei
     scale = 1.0 / (n_layers + 1)
     return acc_u * scale, acc_i * scale
+
+
+class EdgeOrdering(NamedTuple):
+    """The same weighted bipartite edge list in both sorted orders (the JAX
+    ``EdgeOrdering``): sorted by user, every user's messages are one
+    contiguous segment, and likewise by item, so both directions of a layer
+    (and, through the self-adjoint backward, both of its gradient) sum
+    segments and only gather on the other side."""
+
+    eu_by_u: torch.Tensor  # (E,) edge users, ascending
+    ei_by_u: torch.Tensor  # (E,) matching items (user-sorted order)
+    norm_by_u: torch.Tensor  # (E,) matching weights
+    eu_by_i: torch.Tensor  # (E,) users in item-sorted order
+    ei_by_i: torch.Tensor  # (E,) edge items, ascending
+    norm_by_i: torch.Tensor  # (E,)
+
+
+def build_edge_ordering(edge_users: torch.Tensor, edge_items: torch.Tensor,
+                        edge_norm: torch.Tensor) -> EdgeOrdering:
+    """Sort the weighted edge list by user and by item, stably (equal ids
+    keep the input edge order), on the edges' device; once per graph."""
+    pu = torch.argsort(edge_users, stable=True)
+    pi = torch.argsort(edge_items, stable=True)
+    return EdgeOrdering(edge_users[pu], edge_items[pu], edge_norm[pu],
+                        edge_users[pi], edge_items[pi], edge_norm[pi])
+
+
+def _segment_sum(values: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+    """Row sums of consecutive runs of ``values`` (``lengths[n]`` rows for
+    node n, 0 for a node with no edge), each run added in row order."""
+    return torch.segment_reduce(values, "sum", lengths=lengths, axis=0, unsafe=True)
+
+
+def sorted_pair(order: EdgeOrdering, n_users: int, n_items: int):
+    """The linear pair ``(x_u, x_i) -> (A x_i, A^T x_u)`` over sorted edges,
+    no backward of its own: each side gathers the other and sums its
+    segments. The segment lengths are counted here, once a pair."""
+    len_u = torch.bincount(order.eu_by_u, minlength=n_users)
+    len_i = torch.bincount(order.ei_by_i, minlength=n_items)
+
+    def pair_fn(x_u, x_i):
+        return (_segment_sum(x_i[order.ei_by_u] * order.norm_by_u[:, None], len_u),
+                _segment_sum(x_u[order.eu_by_i] * order.norm_by_i[:, None], len_i))
+
+    return pair_fn
+
+
+def self_adjoint(pair_fn):
+    """``pair_fn`` as a layer with the self-adjoint backward
+    (``SelfAdjointPair``)."""
+
+    def pair(x_u, x_i):
+        return SelfAdjointPair.apply(pair_fn, x_u, x_i)
+
+    return pair
+
+
+def make_coo_propagator(order: EdgeOrdering, n_users: int, n_items: int):
+    """One bipartite propagation layer over sorted edges, with the
+    self-adjoint backward: forward and backward each gather the other side
+    and sum segments in a fixed order; nothing scatters."""
+    return self_adjoint(sorted_pair(order, n_users, n_items))
+
+
+def lightgcn_propagate_coo_sorted(
+    user_emb: torch.Tensor,
+    item_emb: torch.Tensor,
+    order: EdgeOrdering,
+    n_users: int,
+    n_items: int,
+    n_layers: int = 3,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``lightgcn_propagate_coo`` on pre-sorted edges: the same math, each
+    segment summed in edge order."""
+    return layer_mean(make_coo_propagator(order, n_users, n_items), user_emb, item_emb,
+                       n_layers)
 
 
 class BucketedSide(NamedTuple):
@@ -238,17 +319,20 @@ def _bucketed_aggregate(side: BucketedSide, x: torch.Tensor) -> torch.Tensor:
     return torch.cat(parts).index_select(0, side.inv)
 
 
-def make_bucketed_propagator(binc: BucketedIncidence):
-    """One bipartite propagation layer over the bucketed layout, with the
-    self-adjoint backward: both passes gather and sum, neither scatters."""
+def bucketed_pair(binc: BucketedIncidence):
+    """The linear pair ``(x_u, x_i) -> (A x_i, A^T x_u)`` over the bucketed
+    layout, no backward of its own."""
 
     def pair_fn(x_u, x_i):
         return _bucketed_aggregate(binc.users, x_i), _bucketed_aggregate(binc.items, x_u)
 
-    def pair(x_u, x_i):
-        return SelfAdjointPair.apply(pair_fn, x_u, x_i)
+    return pair_fn
 
-    return pair
+
+def make_bucketed_propagator(binc: BucketedIncidence):
+    """One bipartite propagation layer over the bucketed layout, with the
+    self-adjoint backward: both passes gather and sum, neither scatters."""
+    return self_adjoint(bucketed_pair(binc))
 
 
 def lightgcn_propagate_bucketed(
@@ -259,7 +343,7 @@ def lightgcn_propagate_bucketed(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``lightgcn_propagate_coo`` on the bucketed layout: the same math up
     to float summation order."""
-    return _layer_mean(make_bucketed_propagator(binc), user_emb, item_emb, n_layers)
+    return layer_mean(make_bucketed_propagator(binc), user_emb, item_emb, n_layers)
 
 
 def edge_gcn_norm(edge_users: torch.Tensor, edge_items: torch.Tensor, n_users: int,

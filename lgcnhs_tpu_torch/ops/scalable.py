@@ -148,13 +148,14 @@ def chunked_masked_topk(
     (user, item) entry, ``chunk_users``: the 1-byte seen mask on the kernel
     route (the kernel never writes scores), the score's own bytes on the
     plain route (4 for f32, 8 for f64). The JAX package sizes every chunk
-    by a 4-byte score block."""
+    by a 4-byte score block. ``cols`` may be a tensor already on the
+    tables' device (a caller that ranks again stages it once)."""
     U, I = user_emb.shape[0], item_emb.shape[0]
     dev = user_emb.device
     route = retrieval_route(dev.type, user_emb.dtype)
     C = chunk_users(U, I, 1 if route == "kernel" else user_emb.element_size(), chunk_bytes)
     rowptr = np.asarray(rowptr, np.int64)
-    cols_t = torch.from_numpy(np.asarray(cols, np.int64)).to(dev)
+    cols_t = torch.as_tensor(cols).to(dev, torch.int64)
     out = torch.empty((U, k), dtype=torch.int32, device=dev)
     for s in range(0, U, C):
         e = min(s + C, U)

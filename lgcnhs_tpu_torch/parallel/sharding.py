@@ -1,6 +1,6 @@
-"""Multi-device sharding on the (data, model) mesh: the dense half.
+"""Multi-device sharding on the (data, model) mesh.
 
-Port of ``lgcnhs_tpu/parallel/sharding.py:41-493`` to ``torch.distributed``
+Port of ``lgcnhs_tpu/parallel/sharding.py`` to ``torch.distributed``
 (the reference trains on one hard-wired device, ``model/LightGCN/train.py:87``).
 JAX states placements (``NamedSharding``) and lets GSPMD insert the
 collectives; here every rank holds only its block of each sharded operand
@@ -21,6 +21,19 @@ and the collectives are written out:
   owns an output-item block and the other ranks' interaction blocks pass
   through it one at a time (``_ring``).
 
+The large-graph (COO) half: a graph that refuses to densify shards its
+EDGE LIST over every rank (``EDGE_AXES``, the world group). Each rank keeps
+its edge block (sorted by user and by item for the "segment" layout,
+``shard_coo_edges``; degree-bucketed for the "bucketed" one,
+``shard_bucketed_incidence``), computes its partial messages a layer and the
+world group sums them (``_self_adjoint_sharded_pair``: the backward is the
+same pair and sum on the output gradients). The tables and Adam's state
+are whole on every rank (``make_sharded_coo_train_step``), or row-sharded
+over "model" with the layer-0 tables gathered for the propagation and the
+BPR rows exchanged (``make_table_sharded_coo_train_step``). The CSR
+evaluation splits users over every rank, each ranking its block through
+``ops/scalable.chunked_masked_topk`` (``make_distributed_csr_masked_topk``).
+
 Every public function keeps the JAX signature and meaning: global numpy or
 torch arrays go in, and every rank gets the global result back. The
 ``_*_blocks`` / ``_core`` functions take blocks; the trainer, the sweeps and
@@ -39,7 +52,8 @@ Kernels: a rank's propagation pair (R_blk . e_i_blk, R_blk^T . e_u) is the
 ``dual_matmul`` contract, so the prod preset on CUDA runs the kernel on
 each rank's int8 item block (6 launches a step, as on one device); ranking
 by ``distributed_retrieve_topk`` runs the retrieval kernel on each rank's
-REAL items (one launch a rank a call). JAX caches its staged masked top-k
+REAL items (one launch a rank a call); the mesh's CSR evaluation runs it
+on each user chunk of the rank's block. JAX caches its staged masked top-k
 per (mesh, k, block) (``sharding.py:440``); eager PyTorch has no program
 to cache.
 """
@@ -54,6 +68,11 @@ import torch.distributed as dist
 from lgcnhs_tpu_torch.models.lightgcn import LightGCNParams, bpr_loss, sample_bpr_batch
 from lgcnhs_tpu_torch.ops.cuda.propagation import dual_matmul
 from lgcnhs_tpu_torch.ops.diffusion import blend_exponents
+from lgcnhs_tpu_torch.ops.propagation import (
+    BucketedIncidence, EdgeOrdering, build_bucketed_incidence, bucketed_pair, layer_mean,
+    self_adjoint, sorted_pair,
+)
+from lgcnhs_tpu_torch.ops.scalable import chunked_masked_topk, sample_bpr_batch_csr
 from lgcnhs_tpu_torch.ops.topk import (
     MASK_VALUE, rank_exclude_seen_topk, retrieval_route, select_topk,
 )
@@ -389,6 +408,22 @@ def make_sharded_train_step(plan: ShardingPlan, optimizer, hp, n_items: int,
     return step
 
 
+def _scan(plan: ShardingPlan, step_once):
+    """The counterpart of a JAX ``lax.scan`` over a sharded step: the step
+    over ``n_steps`` epochs, each on its own ``epoch_generator(seed, epoch,
+    device)`` as the trainer draws. ``train_scan(params, seed, epoch0,
+    n_steps, *step_args) -> the last step's loss``."""
+    from lgcnhs_tpu_torch.train.trainer import epoch_generator
+
+    def train_scan(params, seed, epoch0, n_steps, *args):
+        loss = None
+        for epoch in range(epoch0, epoch0 + n_steps):
+            loss = step_once(params, epoch, epoch_generator(seed, epoch, plan.mesh.device), *args)
+        return loss
+
+    return train_scan
+
+
 def make_sharded_train_scan(plan: ShardingPlan, optimizer, hp, n_items: int,
                             bf16_matmul: bool = False, neg_hi: Optional[int] = None):
     """The counterpart of JAX's ``make_sharded_train_scan`` (a ``lax.scan``
@@ -399,18 +434,7 @@ def make_sharded_train_scan(plan: ShardingPlan, optimizer, hp, n_items: int,
     edge_items, pos_blk) -> the last step's loss``. The mesh trainer runs
     the step in the single-device trainer's epoch loop instead, since
     eager PyTorch gains nothing from grouping epochs."""
-    from lgcnhs_tpu_torch.train.trainer import epoch_generator
-
-    step_once = make_sharded_train_step(plan, optimizer, hp, n_items, bf16_matmul, neg_hi)
-
-    def train_scan(params, seed, epoch0, n_steps, R_blk, edge_users, edge_items, pos_blk):
-        loss = None
-        for epoch in range(epoch0, epoch0 + n_steps):
-            loss = step_once(params, epoch, epoch_generator(seed, epoch, plan.mesh.device),
-                             R_blk, edge_users, edge_items, pos_blk)
-        return loss
-
-    return train_scan
+    return _scan(plan, make_sharded_train_step(plan, optimizer, hp, n_items, bf16_matmul, neg_hi))
 
 
 def _internal_similarity_blocks(mesh: Mesh, rec, inter_blk, deg_blk) -> torch.Tensor:
@@ -665,3 +689,253 @@ def sharded_diffusion_scores(mesh: Mesh, A, lam) -> torch.Tensor:
     A_blk = col_sharded(mesh, torch.nn.functional.pad(A, (0, I_pad - I)))
     F_blk = _hybrid_resource_block(mesh, A_blk, lam)
     return _gather_cols(F_blk, mesh.group(MODEL_AXIS), n)[:, :I]
+
+
+# -- the edge-sharded COO half -----------------------------------------------------------
+
+#: The axes the edge list splits over (JAX's ``EDGE_AXES``): every rank of the
+#: mesh, in the flattened (data, model) order. The mesh spans the whole
+#: process group (``runtime/mesh.make_mesh``) and ``init_device_mesh`` lays the
+#: global ranks out in that order, so these axes' group is the world group and
+#: a rank's block index is its global rank.
+EDGE_AXES = (DATA_AXIS, MODEL_AXIS)
+
+
+def _edges(mesh: Mesh) -> Tuple[int, int]:
+    """(this rank's block index over ``EDGE_AXES``, the block count)."""
+    index = 0
+    for axis in EDGE_AXES:
+        index = index * mesh.shape[axis] + mesh.index(axis)
+    return index, mesh.size
+
+
+def shard_coo_edges(plan: ShardingPlan, edge_users, edge_items, edge_norm) -> EdgeOrdering:
+    """This rank's edge block, sorted by user and by item on the host, on
+    the rank's device. The list is padded to divide the mesh (padding edges
+    point at user 0 and item 0 with weight 0: exact zero messages) and cut
+    into contiguous blocks over ``EDGE_AXES``; the six arrays are the
+    rank's slices of JAX's six per-shard-sorted arrays."""
+    r, n_dev = _edges(plan.mesh)
+    eu, ei, norm = _np(edge_users), _np(edge_items), _np(edge_norm)
+    E = eu.shape[0]
+    block = _pad_len(E, n_dev) // n_dev
+    pad = (0, block * n_dev - E)
+    eu, ei, norm = (np.pad(a, pad)[r * block:(r + 1) * block] for a in (eu, ei, norm))
+    pu, pi = np.argsort(eu, kind="stable"), np.argsort(ei, kind="stable")
+
+    def put(a, dtype=None):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype)).to(plan.mesh.device)
+
+    return EdgeOrdering(put(eu[pu], np.int64), put(ei[pu], np.int64), put(norm[pu]),
+                        put(eu[pi], np.int64), put(ei[pi], np.int64), put(norm[pi]))
+
+
+def _sum_over_edges(msg_u: torch.Tensor, msg_i: torch.Tensor):
+    """The world group's sum of the ranks' partial messages, one all_reduce
+    for both sides."""
+    both = torch.cat([msg_u, msg_i])
+    dist.all_reduce(both)
+    return both[:msg_u.shape[0]], both[msg_u.shape[0]:]
+
+
+def _self_adjoint_sharded_pair(local_pair):
+    """JAX's ``_self_adjoint_sharded_pair``: the rank's linear pair over its
+    edge block, then the world group's sum, with the self-adjoint backward
+    (the same pair and sum on the output gradients). The loss is the same
+    on every rank, so every rank's output gradients are the whole ones and
+    the backward's sum adds each edge block's share once."""
+    return self_adjoint(lambda x_u, x_i: _sum_over_edges(*local_pair(x_u, x_i)))
+
+
+def _coo_propagate_sharded(n_users: int, n_items: int, n_layers: int):
+    """Edge-sharded propagation, the "segment" layout:
+    ``propagate(ue, ie, order)`` with ``order`` the rank's sorted block
+    (``shard_coo_edges``), each layer the rank's sorted segment sums
+    (``ops/propagation.sorted_pair``) summed over the world group."""
+
+    def propagate(ue, ie, order: EdgeOrdering):
+        pair = _self_adjoint_sharded_pair(sorted_pair(order, n_users, n_items))
+        return layer_mean(pair, ue, ie, n_layers)
+
+    return propagate
+
+
+def shard_bucketed_incidence(plan: ShardingPlan, edge_users, edge_items, edge_norm,
+                             n_users: int, n_items: int, min_cap: int = 4) -> BucketedIncidence:
+    """This rank's block of the edge-sharded bucketed-ELL layout: the edge
+    list in ``np.array_split`` blocks over ``EDGE_AXES`` (JAX's split), the
+    rank's block degree-bucketed by ``ops/propagation.build_bucketed_incidence``
+    on the rank's device.
+
+    JAX stacks every device's buckets into ``ShardedBucketedSide`` arrays
+    padded to common shapes, because one SPMD program runs them all. A rank
+    here runs its own block, so its buckets keep their own shapes and no
+    stacked type exists: the layouts differ by rank, the sums are the
+    same."""
+    r, n_dev = _edges(plan.mesh)
+    eu, ei, norm = (np.array_split(_np(a), n_dev)[r] for a in (edge_users, edge_items, edge_norm))
+    return build_bucketed_incidence(eu, ei, norm, n_users, n_items, min_cap,
+                                    device=plan.mesh.device)
+
+
+def _bucketed_propagate_sharded(n_layers: int):
+    """Edge-sharded propagation, the "bucketed" layout (production):
+    ``propagate(ue, ie, binc)`` with ``binc`` the rank's block
+    (``shard_bucketed_incidence``), each layer its gathers and dense sums
+    summed over the world group."""
+
+    def propagate(ue, ie, binc: BucketedIncidence):
+        return layer_mean(_self_adjoint_sharded_pair(bucketed_pair(binc)), ue, ie, n_layers)
+
+    return propagate
+
+
+def _coo_step(optimizer, hp, n_items: int, neg_hi: Optional[int], propagate, layer0, rows_u,
+              rows_i):
+    """The single-device COO step (``train/trainer._make_step``: the CSR
+    sampler on the replicated edge list, BPR, Adam, the lr schedule) over a
+    sharded propagation: ``layer0(params)`` gives the whole layer-0 tables it
+    propagates, ``rows_u(user_table, ids)`` and ``rows_i(item_table, ids)``
+    the BPR's layer-0 rows."""
+    from lgcnhs_tpu_torch.train.trainer import _make_step
+
+    hi = neg_hi if neg_hi is not None else n_items
+
+    def sample(generator, edge_users, edge_items, keys):
+        return sample_bpr_batch_csr(generator, edge_users, edge_items, keys, hp.batch_size, hi)
+
+    def loss_of(params, se, users, pos_items, neg_items):
+        u_final, i_final = propagate(*layer0(params), se)
+        return bpr_loss(u_final[users], rows_u(params.user_emb, users),
+                        i_final[pos_items], rows_i(params.item_emb, pos_items),
+                        i_final[neg_items], rows_i(params.item_emb, neg_items), hp.epsilon)
+
+    return _make_step(optimizer, hp, sample, loss_of)
+
+
+def make_sharded_coo_train_step(plan: ShardingPlan, optimizer, hp, n_users: int,
+                                n_items: int, neg_hi: Optional[int] = None,
+                                layout: str = "bucketed"):
+    """Edge-sharded ``train/trainer.make_coo_train_step``:
+    ``step(params, epoch, generator, se, edge_users, edge_items, keys) ->
+    loss``, with the tables and Adam's state whole on every rank. Every rank
+    draws the single-device triples (``sample_bpr_batch_csr`` on the
+    replicated edges and their ``csr_keys``) and computes the whole loss and
+    update; only the propagation is split, over edge blocks. No gradient
+    sum over "data": the batch is not split. ``layout``: "bucketed"
+    (production; ``se`` from ``shard_bucketed_incidence``) or "segment"
+    (sorted segment sums; ``se`` from ``shard_coo_edges``)."""
+    if layout == "bucketed":
+        propagate = _bucketed_propagate_sharded(hp.layers)
+    elif layout == "segment":
+        propagate = _coo_propagate_sharded(n_users, n_items, hp.layers)
+    else:
+        raise ValueError(f"unknown sharded COO layout {layout!r}")
+    def rows(table, ids):
+        return table[ids]
+
+    return _coo_step(optimizer, hp, n_items, neg_hi, propagate, lambda params: params, rows, rows)
+
+
+def _row_gather_by_shard(plan: ShardingPlan, n_pad: int):
+    """``gather(table_blk, ids) -> (B, D)`` rows of a table row-sharded over
+    "model" (padded to ``n_pad`` rows): each rank gives the rows it owns
+    (zeros for the others) and the model group sums them, O(B D) bytes and
+    no table gathered. Backward: the sum passes the (replicated) gradient
+    through (``_SumOverModel``) and the rank's owned rows take their share."""
+    group, n_model, i = _model(plan.mesh)
+    block = n_pad // n_model
+
+    def gather(table_blk, ids):
+        local = ids - i * block
+        mine = (local >= 0) & (local < block)
+        rows = torch.where(mine[:, None], table_blk[local.clamp(0, block - 1)], 0.0)
+        return _SumOverModel.apply(rows, group)
+
+    return gather
+
+
+def make_table_sharded_coo_train_step(plan: ShardingPlan, optimizer, hp, n_users: int,
+                                      n_items: int, neg_hi: Optional[int] = None):
+    """``make_sharded_coo_train_step`` (bucketed layout) with the tables and
+    both Adam moments row-sharded over "model", padded by
+    ``padded_catalog`` (``shard_params``): about 1/M of the persistent table
+    bytes on each rank. The layer-0 tables are gathered over the model group
+    for the propagation (``_GatherRows``: backward, the rank's rows of the
+    replicated gradient), the BPR's layer-0 rows exchanged through
+    ``_row_gather_by_shard``. ``se`` from ``shard_bucketed_incidence`` over
+    the padded sizes. Padded rows are zero, get zero gradient and stay zero
+    under Adam. The same triples as the replicated plan; the loss equals it
+    up to float sum order."""
+    group, n, i = _model(plan.mesh)
+    U_pad, I_pad = padded_catalog(plan, n_users, n_items)
+
+    def layer0(params):
+        return tuple(_GatherRows.apply(t, group, n, i) for t in params)
+
+    return _coo_step(optimizer, hp, n_items, neg_hi, _bucketed_propagate_sharded(hp.layers),
+                     layer0, _row_gather_by_shard(plan, U_pad),
+                     _row_gather_by_shard(plan, I_pad))
+
+
+def make_sharded_coo_train_scan(plan: ShardingPlan, optimizer, hp, n_users: int,
+                                n_items: int, neg_hi: Optional[int] = None,
+                                layout: str = "bucketed"):
+    """``make_sharded_coo_train_step`` over ``n_steps`` epochs (``_scan``):
+    ``train_scan(params, seed, epoch0, n_steps, se, edge_users, edge_items,
+    keys)``."""
+    return _scan(plan, make_sharded_coo_train_step(plan, optimizer, hp, n_users, n_items,
+                                                   neg_hi, layout))
+
+
+def make_table_sharded_coo_train_scan(plan: ShardingPlan, optimizer, hp, n_users: int,
+                                      n_items: int, neg_hi: Optional[int] = None):
+    """``make_table_sharded_coo_train_step`` over ``n_steps`` epochs
+    (``_scan``)."""
+    return _scan(plan, make_table_sharded_coo_train_step(plan, optimizer, hp, n_users,
+                                                         n_items, neg_hi))
+
+
+# -- the mesh's CSR evaluation ----------------------------------------------------------
+
+
+def make_distributed_csr_masked_topk(mesh: Mesh, rowptr: np.ndarray, cols: np.ndarray,
+                                     n_users: int):
+    """The user-sharded ``ops/scalable.chunked_masked_topk``, staged once:
+    returns ``run(user_emb, item_emb, k) -> (U, k) int32`` on every rank.
+
+    The users split over every rank in contiguous blocks of
+    ceil(U / ranks) (JAX's padded user blocks); a rank's CSR rows are cut
+    out and put on its device here, once, since the trainer calls ``run``
+    at every evaluation. ``run`` ranks the rank's block against the whole
+    item table through ``chunked_masked_topk`` (the retrieval kernel on
+    CUDA for f32 tables, one launch a user chunk; a rank whose block is
+    empty launches nothing) and the blocks' ids are gathered over the world
+    group. The ids are ``masked_topk``'s: cutting the user axis changes no
+    user's list."""
+    r, n_dev = _edges(mesh)
+    blk = _pad_len(n_users, n_dev) // n_dev
+    start, stop = min(r * blk, n_users), min((r + 1) * blk, n_users)
+    rowptr = np.asarray(rowptr, np.int64)
+    local_rowptr = rowptr[start:stop + 1] - rowptr[start]
+    local_cols = torch.from_numpy(np.asarray(cols[rowptr[start]:rowptr[stop]],
+                                             np.int64)).to(mesh.device)
+
+    def run(user_emb, item_emb, k: int) -> torch.Tensor:
+        ue = torch.as_tensor(user_emb).to(mesh.device)
+        ie = torch.as_tensor(item_emb).to(mesh.device)
+        out = torch.zeros((blk, k), dtype=torch.int32, device=mesh.device)
+        if stop > start:
+            out[:stop - start] = chunked_masked_topk(ue[start:stop], ie, local_rowptr,
+                                                     local_cols, k)
+        return _gather_rows(out, None, n_dev)[:n_users]
+
+    return run
+
+
+def distributed_csr_masked_topk(mesh: Mesh, user_emb, item_emb, rowptr: np.ndarray,
+                                cols: np.ndarray, k: int) -> torch.Tensor:
+    """One call of ``make_distributed_csr_masked_topk`` (staged and run
+    once; a caller that ranks again holds the closure)."""
+    run = make_distributed_csr_masked_topk(mesh, rowptr, cols, int(user_emb.shape[0]))
+    return run(user_emb, item_emb, k)

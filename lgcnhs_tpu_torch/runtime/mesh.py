@@ -194,6 +194,32 @@ def mesh_from_config(compute) -> Optional[Mesh]:
     return make_mesh(shape)
 
 
+def spawn_ranks(target, n: int, tmp: str, args: tuple = (), timeout: float = 600.0) -> None:
+    """Run ``target(rank, n, store, *args)`` in ``n`` spawned processes, the
+    ranks of one process group joined through the file store ``store`` in
+    the directory ``tmp`` (fresh for each group). Raises when a rank fails
+    or the ranks outlast ``timeout`` seconds; no process outlives the call."""
+    import multiprocessing
+
+    ctx = multiprocessing.get_context("spawn")
+    store = os.path.join(tmp, "store")
+    procs = [ctx.Process(target=target, args=(r, n, store, *args)) for r in range(n)]
+    for p in procs:
+        p.start()
+    try:
+        for p in procs:
+            p.join(timeout)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    failed = [r for r, p in enumerate(procs) if p.exitcode != 0]
+    if failed:
+        raise RuntimeError(f"ranks {failed} of {n} failed "
+                           f"(exit codes {[procs[r].exitcode for r in failed]})")
+
+
 def _block(mesh: Mesh, n: int, axis: str) -> slice:
     parts = mesh.shape[axis]
     if n % parts:

@@ -16,7 +16,8 @@ one npz an epoch: both tables, and per table Adam's ``exp_avg``,
 ``inject_hyperparams(adam)``'s ``inner_state[0]`` is
 ``ScaleByAdamState(count, mu, nu)`` (``lgcnhs_tpu/train/trainer.py:84-92``),
 and torch's Adam keeps the same moments under other names (``mu`` is
-``exp_avg``, ``nu`` is ``exp_avg_sq``, ``count`` is ``step``).
+``exp_avg``, ``nu`` is ``exp_avg_sq``, ``count`` is ``step``); the padded
+leaves of a table-sharded mesh run are cut to the true catalog.
 """
 from __future__ import annotations
 
@@ -117,14 +118,32 @@ def restore_train_state(
     return saved_epoch, params, state
 
 
-def train_state_from_jax(params, opt_state) -> Tuple[LightGCNParams, OptimizerState]:
+def train_state_from_jax(params, opt_state, n_users: Optional[int] = None,
+                         n_items: Optional[int] = None) -> Tuple[LightGCNParams, OptimizerState]:
     """A JAX run's (``LightGCNParams``, ``inject_hyperparams(adam)`` state),
     leaves as numpy arrays (``jax.tree.map(np.asarray, ...)``), as the port's
-    (params, optimizer_state) on the CPU, dtypes kept."""
+    (params, optimizer_state) on the CPU, dtypes kept.
+
+    A mesh run that row-shards its tables (the dense mesh plan, or
+    ``compute.coo_table_sharding``) checkpoints leaves padded to its model
+    axis. They load as they are on a port mesh of the same model axis;
+    ``n_users`` and ``n_items`` cut the tables and both moments to the true
+    catalog, for one device. The rows cut must be zero, as a padded row
+    stays under Adam; a ValueError says otherwise."""
     adam = opt_state.inner_state[0]  # ScaleByAdamState(count, mu, nu)
     step = torch.tensor(float(np.asarray(adam.count)), dtype=torch.float32)
-    tables = LightGCNParams(*(torch.tensor(np.asarray(getattr(params, n))) for n in TABLES))
-    state = {n: {"exp_avg": torch.tensor(np.asarray(getattr(adam.mu, n))),
-                 "exp_avg_sq": torch.tensor(np.asarray(getattr(adam.nu, n))),
+    keep = dict(zip(TABLES, (n_users, n_items)))
+
+    def leaf(tree, name, what):
+        a = np.asarray(getattr(tree, name))
+        n = keep[name]
+        if n is not None:
+            if a[n:].any():
+                raise ValueError(f"{name} {what}: rows past {n} are not zero padding")
+            a = a[:n]
+        return torch.tensor(a)
+
+    tables = LightGCNParams(*(leaf(params, n, "table") for n in TABLES))
+    state = {n: {"exp_avg": leaf(adam.mu, n, "mu"), "exp_avg_sq": leaf(adam.nu, n, "nu"),
                  "step": step.clone()} for n in TABLES}
     return tables, state

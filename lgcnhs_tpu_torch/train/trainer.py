@@ -49,15 +49,17 @@ the uninterrupted run's triples, and the CSR samplers draw the dense
 samplers' triples.
 
 The mesh branch (``train_lightgcn_on_mesh``, ``lgcnhs_tpu/train/trainer.py:
-422-470,552-633``): with ``compute.mesh_shape`` resolved to a mesh
+422-470,552-633,675-868``): with ``compute.mesh_shape`` resolved to a mesh
 (``runtime/mesh.mesh_from_config``), the tables and Adam's moments are
 row-sharded and padded, the incidence and the positives item-sharded, the
 edges replicated at their true length (the single-device triple stream),
 the step is ``parallel/sharding.make_sharded_train_step`` (``dual_matmul``
 on each rank's int8 item block on the kernel route) and the evaluation
-ranks through the distributed masked top-k. Mesh x COO and
-``compute.coo_table_sharding`` raise with their ROADMAP pointer (queue 1
-item 7, second half). ``--scan-chunk`` has no counterpart without jit.
+ranks through the distributed masked top-k. A graph that takes the COO
+propagation shards its edge list over every rank instead, with the tables
+whole on every rank or, with ``compute.coo_table_sharding``, row-sharded,
+and evaluates through the user-sharded CSR top-k. ``--scan-chunk`` has no
+counterpart without jit.
 """
 from __future__ import annotations
 
@@ -354,12 +356,6 @@ def device_binary_factors(n_users: int, n_items: int, es: EdgeSet, device):
     return R8, degree_inv_sqrt(users, n_users), degree_inv_sqrt(items, n_items)
 
 
-def _not_ported(what: str, item: int) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to lgcnhs_tpu_torch yet (ROADMAP queue 1 item {item})"
-    )
-
-
 def train_lightgcn(
     graph: InteractionGraph,
     cfg: Config,
@@ -477,8 +473,7 @@ def train_lightgcn(
         rejection = csr_keys(rowptr, cols, device)
         v_keys = csr_keys(*user_csr(U, val_es), device)
         val_edge_norm = edge_gcn_norm(val_edge_users, val_edge_items, U, I)
-        inter_edges = (np.asarray(graph.train.users), np.asarray(graph.train.items))
-        train_deg_np = item_degrees(I, graph.train)
+        csr_metrics = _csr_metrics(graph, v_keys, device)
 
         def val_loss(params, generator):
             # every val edge exactly once (calValLoss, evaluation.py:68-77)
@@ -491,13 +486,8 @@ def train_lightgcn(
 
         @torch.no_grad()
         def eval_fn(params):
-            rec = chunked_masked_topk(params.user_emb, params.item_emb, rowptr, cols, cfg.k)
-            hits = hits_csr(rec, v_keys)
-            p, r = metrics_ops.precision_recall_from_hits(hits, val_counts, val_present)
-            n = metrics_ops.ndcg_from_hits(hits, val_present)
-            h = metrics_ops.hamming_distance(rec, I)
-            i = internal_similarity_csr(rec, inter_edges, U, I, train_deg_np)
-            return p, r, n, h, i
+            return csr_metrics(chunked_masked_topk(params.user_emb, params.item_emb, rowptr,
+                                                   cols, cfg.k))
 
     optimizer = make_optimizer(hp, params)
     if propagation == "coo":
@@ -650,46 +640,123 @@ def train_lightgcn_on_mesh(
     checkpoint_every: int = 0,
 ) -> TrainResult:
     """``train_lightgcn`` on a resolved (data, model) mesh, every rank one
-    call (``lgcnhs_tpu/train/trainer.py:552-633``): the same initial tables,
-    triples, BPR, Adam and lr schedule as one device, with
+    call (``lgcnhs_tpu/train/trainer.py:422-470,552-633,675-868``): the same
+    initial tables, triples, BPR, Adam and lr schedule as one device, each
+    epoch in the single-device trainer's loop (``_train_epochs``), along the
+    route ``choose_propagation`` picks with no bf16 expansion (the mesh
+    builds its arrays at f32 width):
 
-    - the incidence (the factored int8 one on the ``dual_matmul`` route), the
-      train and val positives, the val incidence and the train interaction
-      padded and item-sharded, the tables row-sharded and padded (Adam's
-      moments follow them), the edges replicated at their true length;
-    - each epoch through ``make_sharded_train_step``, in the single-device
-      trainer's loop (``_train_epochs``);
-    - the val loss over the sharded forward, the eval's layer-0 scores
-      item-sharded and ranked by the distributed masked top-k, its metrics
-      read from the sharded arrays;
-    - ``unpad_params`` at the end: every rank returns the whole tables, on
-      the mesh's device; rank 0 alone writes the checkpoint and history.
+    - dense (``_mesh_dense_route``): the tables row-sharded and padded,
+      the incidence item-sharded, ``make_sharded_train_step``, the
+      distributed masked top-k evaluation;
+    - COO (``_mesh_coo_route``): the edge list sharded over every rank, the
+      tables whole on every rank (``make_sharded_coo_train_step``) or, with
+      ``compute.coo_table_sharding``, row-sharded and padded
+      (``make_table_sharded_coo_train_step``); the val loss by the COO
+      propagation over the val edges, the CSR evaluation through the
+      user-sharded ``make_distributed_csr_masked_topk``.
 
-    With ``checkpoint_dir`` the state is saved whole (padded tables and
-    moments, gathered) by rank 0 and a resume cuts each rank's rows again.
-    Raises for a graph that takes the COO propagation and for
-    ``compute.coo_table_sharding`` (ROADMAP queue 1 item 7)."""
+    ``coo_table_sharding`` on a graph that takes the dense route is logged
+    and changes nothing (the dense plan row-shards the tables already), as
+    in JAX. Adam's moments follow the tables. Every rank returns the whole
+    tables on the mesh's device; rank 0 alone writes the checkpoint and
+    history. With ``checkpoint_dir`` rank 0 saves the whole (padded) tables
+    and moments and a resume cuts each rank's rows again."""
     from lgcnhs_tpu_torch.parallel import sharding
 
     hp = cfg.hparams
     log = get_logger()
     device = mesh.device
     U, I = graph.n_users, graph.n_items
-    if cfg.compute.coo_table_sharding:
-        raise _not_ported("compute.coo_table_sharding (the table-sharded COO steps)", 7)
-    if choose_propagation(U, I, graph.train.n_edges, cfg.compute, single_chip=False) == "coo":
-        raise _not_ported("mesh training of a graph that takes the COO propagation "
-                          "(the sharded COO steps)", 7)
-    dtype, np_dtype = _dtypes(cfg)
+    propagation = choose_propagation(U, I, graph.train.n_edges, cfg.compute, single_chip=False)
+    if cfg.compute.coo_table_sharding and propagation != "coo":
+        log.warning("coo_table_sharding requested but the graph takes the %s path; tables are "
+                    "row-sharded by the dense mesh plan already: the flag has no additional "
+                    "effect", propagation)
+    sharded_tables = propagation == "dense" or bool(cfg.compute.coo_table_sharding)
+    dtype, _ = _dtypes(cfg)
     params, model_name = _init_params(graph, cfg, user_features, item_features, "cpu", dtype)
+    plan = sharding.make_plan(mesh)
+    U_pad, I_pad = sharding.padded_catalog(plan, U, I) if sharded_tables else (U, I)
+    params = (sharding.shard_params(plan, params) if sharded_tables
+              else LightGCNParams(*(replicated(mesh, t) for t in params)))
+    params = LightGCNParams(*(t.requires_grad_(True) for t in params))
+    optimizer = make_optimizer(hp, params)
+    group, n_model = mesh.group(MODEL_AXIS), mesh.shape[MODEL_AXIS]
+
+    def whole(t: torch.Tensor) -> torch.Tensor:
+        """A table (or moment) whole: joined over "model" when sharded."""
+        t = t.detach()
+        return sharding._gather_rows(t, group, n_model) if sharded_tables else t
+
+    def mine(t: torch.Tensor) -> torch.Tensor:
+        """This rank's part of a whole table or moment."""
+        return row_sharded(mesh, t) if sharded_tables else replicated(mesh, t)
+
+    route = _mesh_coo_route if propagation == "coo" else _mesh_dense_route
+    step, val_loss, evaluate = route(graph, cfg, mesh, plan, optimizer, params, (U_pad, I_pad),
+                                     whole, log, model_name)
+
+    start_epoch = 0
+    restored = restore_train_state(checkpoint_dir, "cpu") if checkpoint_dir else None
+    if restored is not None:
+        last, saved, opt_state = restored
+        want = ((U_pad, hp.embedding_dim), (I_pad, hp.embedding_dim))
+        for table, value, shape in zip(params, saved, want):
+            if tuple(value.shape) != shape or value.dtype != table.dtype:
+                raise ValueError(
+                    f"checkpoint in {checkpoint_dir} holds a {tuple(value.shape)} "
+                    f"{value.dtype} table where this mesh trains {shape} {table.dtype}"
+                    + (" (padded to the model axis)" if sharded_tables else ""))
+        with torch.no_grad():
+            for table, value in zip(params, saved):
+                table.copy_(mine(value))
+        load_optimizer_state(optimizer, params, {
+            name: {"step": s["step"], **{m: mine(s[m]) for m in ("exp_avg", "exp_avg_sq")}}
+            for name, s in opt_state.items()})
+        start_epoch = last + 1
+        log.info("resumed from checkpoint at epoch %d", last)
+
+    def checkpoint(epoch: int) -> None:
+        tables = LightGCNParams(*(whole(t) for t in params))
+        state = {name: {"step": s["step"], **{m: whole(s[m]) for m in ("exp_avg", "exp_avg_sq")}}
+                 for name, s in optimizer_state(optimizer, params).items()}
+        if is_writer():
+            save_train_state(checkpoint_dir, epoch, tables, state)
+
+    history: Dict[str, List[float]] = {name: [] for name in HISTORY_COLUMNS}
+    if start_epoch > 0 and save_artifacts:
+        _carry_history(cfg, model_name, history, start_epoch)
+    with stage_timer(f"{model_name} training done ({hp.epochs} epochs)", log):
+        _train_epochs(cfg, log, history, device, start_epoch, step, val_loss, evaluate,
+                      checkpoint_every if checkpoint_dir else 0, checkpoint)
+
+    params = sharding.unpad_params(params, U, I, mesh if sharded_tables else None)
+    _save_artifacts(cfg, model_name, params, history, save_artifacts)
+    return TrainResult(params=params, history=history)
+
+
+def _mesh_dense_route(graph, cfg, mesh, plan, optimizer, params, padded, whole, log, model_name):
+    """The mesh's dense route (``lgcnhs_tpu/train/trainer.py:552-633``):
+    ``(step(epoch, generator), val_loss(generator), evaluate())`` over the
+    row-sharded ``params``. The incidence (the factored int8 one on the
+    ``dual_matmul`` route), the train and val positives, the val incidence
+    and the train interaction padded and item-sharded, the edges
+    replicated at their true length; the val loss over the sharded forward,
+    the evaluation's layer-0 scores item-sharded and ranked by the
+    distributed masked top-k, its metrics read from the sharded arrays."""
+    from lgcnhs_tpu_torch.parallel import sharding
+
+    hp = cfg.hparams
+    device = mesh.device
+    U, I = graph.n_users, graph.n_items
+    U_pad, I_pad = padded
+    dtype, np_dtype = _dtypes(cfg)
     _bf16 = cfg.compute.dtype == "bfloat16"
     kernel = uses_kernels(cfg.compute, device) and _bf16 and fits_dual(hp.embedding_dim, device)
     log.info("training %s on mesh %s (%s, %s)", model_name, mesh.shape, device,
              "int8 item blocks through the dual_matmul CUDA kernel" if kernel
              else f"dense {'bf16' if _bf16 else cfg.compute.dtype} item blocks")
-
-    plan = sharding.make_plan(mesh)
-    U_pad, I_pad = sharding.padded_catalog(plan, U, I)
     train_es, val_es = unique_edges(graph.train), unique_edges(graph.val)
     pos = pos_bool_matrix(U, I, graph.train)
     if kernel:
@@ -718,15 +785,14 @@ def train_lightgcn_on_mesh(
     val_present = replicated(mesh, users_present(U, graph.val))
     neg_hi_train, neg_hi_val, val_reject_uid = _negative_ranges(graph, hp)
     block = I_pad // mesh.shape[MODEL_AXIS]
-    group, n_model = mesh.group(MODEL_AXIS), mesh.shape[MODEL_AXIS]
-
-    params = LightGCNParams(*(t.requires_grad_(True) for t in sharding.shard_params(plan, params)))
-    optimizer = make_optimizer(hp, params)
     train_step = sharding.make_sharded_train_step(plan, optimizer, hp, I, bf16_matmul=_bf16,
                                                   neg_hi=neg_hi_train)
 
+    def step(epoch, generator):
+        return train_step(params, epoch, generator, R_blk, edge_users, edge_items, train_pos)
+
     @torch.no_grad()
-    def val_loss(params, generator):
+    def val_loss(generator):
         # every val edge exactly once (calValLoss, evaluation.py:68-77)
         v_users, v_pos, v_neg = sample_negatives_for_edges(
             generator, val_users, val_items, sharding.ShardedColumns(mesh, val_pos),
@@ -735,8 +801,8 @@ def train_lightgcn_on_mesh(
                                      hp.layers)
 
     @torch.no_grad()
-    def eval_fn(params):
-        ue = sharding._gather_rows(params.user_emb.detach(), group, n_model)[:U]
+    def evaluate():
+        ue = whole(params.user_emb)[:U]
         rec = sharding._masked_topk_blocks(mesh, ue @ params.item_emb.detach().T,
                                            train_pos[:U], cfg.k, block)
         rows = torch.arange(U, device=device)[:, None].expand(U, cfg.k)
@@ -746,56 +812,91 @@ def train_lightgcn_on_mesh(
         h = metrics_ops.hamming_distance(rec, I)
         return p, r, n, h, sharding._internal_similarity_blocks(mesh, rec, inter, deg)
 
-    def whole_state():
-        """(tables, Adam state) joined over the model axis: padded, whole."""
-        tables = LightGCNParams(*(sharding._gather_rows(t.detach(), group, n_model)
-                                  for t in params))
-        state = optimizer_state(optimizer, params)
-        return tables, {name: {"step": s["step"],
-                               **{m: sharding._gather_rows(s[m], group, n_model)
-                                  for m in ("exp_avg", "exp_avg_sq")}}
-                        for name, s in state.items()}
+    return step, val_loss, evaluate
 
-    start_epoch = 0
-    restored = restore_train_state(checkpoint_dir, "cpu") if checkpoint_dir else None
-    if restored is not None:
-        last, saved, opt_state = restored
-        want = ((U_pad, hp.embedding_dim), (I_pad, hp.embedding_dim))
-        for table, value, shape in zip(params, saved, want):
-            if tuple(value.shape) != shape or value.dtype != table.dtype:
-                raise ValueError(
-                    f"checkpoint in {checkpoint_dir} holds a {tuple(value.shape)} "
-                    f"{value.dtype} table where this mesh trains {shape} {table.dtype} "
-                    "(padded to the model axis)")
-        with torch.no_grad():
-            for table, value in zip(params, saved):
-                table.copy_(row_sharded(mesh, value))
-        load_optimizer_state(optimizer, params, {
-            name: {"step": s["step"], **{m: row_sharded(mesh, s[m])
-                                         for m in ("exp_avg", "exp_avg_sq")}}
-            for name, s in opt_state.items()})
-        start_epoch = last + 1
-        log.info("resumed from checkpoint at epoch %d", last)
 
-    def checkpoint(epoch: int) -> None:
-        tables, state = whole_state()
-        if is_writer():
-            save_train_state(checkpoint_dir, epoch, tables, state)
+def _mesh_coo_route(graph, cfg, mesh, plan, optimizer, params, padded, whole, log, model_name):
+    """The mesh's COO route (``lgcnhs_tpu/train/trainer.py:675-868``):
+    ``(step(epoch, generator), val_loss(generator), evaluate())``. The
+    edge list sharded over every rank in bucketed-ELL blocks built over the
+    tables' (padded) sizes, the CSR keys and edges replicated (the
+    single-device triples); the step ``make_sharded_coo_train_step``, or
+    ``make_table_sharded_coo_train_step`` when the tables are row-sharded.
+    The val loss and the evaluation read the whole tables: the val loss by
+    the COO propagation over the val edges (the padded rows aggregate
+    nothing), the evaluation through the user-sharded CSR top-k, staged
+    once, on the true catalog ([:U], [:I]: padded rows never reach the
+    scores), then the CSR hits and I@k on the gathered lists."""
+    from lgcnhs_tpu_torch.parallel import sharding
 
-    history: Dict[str, List[float]] = {name: [] for name in HISTORY_COLUMNS}
-    if start_epoch > 0 and save_artifacts:
-        _carry_history(cfg, model_name, history, start_epoch)
-    with stage_timer(f"{model_name} training done ({hp.epochs} epochs)", log):
-        _train_epochs(
-            cfg, log, history, device, start_epoch,
-            lambda epoch, gen: train_step(params, epoch, gen, R_blk, edge_users, edge_items,
-                                          train_pos),
-            lambda gen: val_loss(params, gen), lambda: eval_fn(params),
-            checkpoint_every if checkpoint_dir else 0, checkpoint)
+    hp = cfg.hparams
+    device = mesh.device
+    U, I = graph.n_users, graph.n_items
+    sharded_tables = bool(cfg.compute.coo_table_sharding)
+    log.info("training %s on mesh %s (%s): graph too large/sparse to densify, COO propagation, "
+             "edge-sharded bucketed-ELL aggregation, tables %s", model_name, mesh.shape, device,
+             "row-sharded" if sharded_tables else "replicated")
+    train_es, val_es = unique_edges(graph.train), unique_edges(graph.val)
 
-    params = sharding.unpad_params(params, U, I, mesh)
-    _save_artifacts(cfg, model_name, params, history, save_artifacts)
-    return TrainResult(params=params, history=history)
+    def edges(a):
+        return replicated(mesh, torch.from_numpy(np.asarray(a, np.int64)))
+
+    edge_users, edge_items = edges(train_es.users), edges(train_es.items)
+    val_users, val_items = edges(val_es.users), edges(val_es.items)
+    rowptr, cols = user_csr(U, train_es)
+    keys = csr_keys(rowptr, cols, device)
+    v_keys = csr_keys(*user_csr(U, val_es), device)
+    edge_norm = edge_gcn_norm(edge_users, edge_items, U, I)
+    se = sharding.shard_bucketed_incidence(plan, train_es.users, train_es.items,
+                                           edge_norm.cpu().numpy(), *padded)
+    neg_hi_train, neg_hi_val, val_reject_uid = _negative_ranges(graph, hp)
+    make = (sharding.make_table_sharded_coo_train_step if sharded_tables
+            else sharding.make_sharded_coo_train_step)
+    train_step = make(plan, optimizer, hp, U, I, neg_hi=neg_hi_train)
+    val_edge_norm = edge_gcn_norm(val_users, val_items, U, I)
+    csr_topk = sharding.make_distributed_csr_masked_topk(mesh, rowptr, cols, U)
+    csr_metrics = _csr_metrics(graph, v_keys, device)
+
+    def tables():
+        return LightGCNParams(*(whole(t) for t in params))
+
+    def step(epoch, generator):
+        return train_step(params, epoch, generator, se, edge_users, edge_items, keys)
+
+    def val_loss(generator):
+        # every val edge exactly once (calValLoss, evaluation.py:68-77)
+        v_users, v_pos, v_neg = sample_negatives_for_edges_csr(
+            generator, val_users, val_items, v_keys, neg_hi_val, reject_user_ids=val_reject_uid)
+        return coo_val_loss_fn(tables(), val_users, val_items, val_edge_norm, v_users, v_pos,
+                               v_neg, hp.epsilon, hp.layers)
+
+    @torch.no_grad()
+    def evaluate():
+        ue, ie = tables()
+        return csr_metrics(csr_topk(ue[:U], ie[:I], cfg.k))
+
+    return step, val_loss, evaluate
+
+
+def _csr_metrics(graph, v_keys, device):
+    """``metrics(rec) -> (P, R, NDCG, H, I)`` of a (U, k) list on the CSR
+    structures: hits against the val keys, I@k over the recommended items'
+    Gram (``ops/scalable``)."""
+    U, I = graph.n_users, graph.n_items
+    val_counts = torch.from_numpy(user_pos_counts(U, graph.val)).to(device)
+    val_present = torch.from_numpy(users_present(U, graph.val)).to(device)
+    inter_edges = (np.asarray(graph.train.users), np.asarray(graph.train.items))
+    train_deg_np = item_degrees(I, graph.train)
+
+    def metrics(rec):
+        hits = hits_csr(rec, v_keys)
+        p, r = metrics_ops.precision_recall_from_hits(hits, val_counts, val_present)
+        n = metrics_ops.ndcg_from_hits(hits, val_present)
+        h = metrics_ops.hamming_distance(rec, I)
+        i = internal_similarity_csr(rec, inter_edges, U, I, train_deg_np)
+        return p, r, n, h, i
+
+    return metrics
 
 
 def save_checkpoint(path: str, params: LightGCNParams) -> None:

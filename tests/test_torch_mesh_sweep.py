@@ -17,7 +17,9 @@
   config): the list file and the JSON metric line identical to
   ``lgcnhs_tpu.cli.main --mesh 1,2``'s; only rank 0 prints the line.
 - ``cli/find_lambda --mesh 1,2``: the CSV byte-identical to JAX's.
-- ``dryrun_multichip(2)`` runs.
+- ``dryrun_multichip`` runs at 2 ranks and at 4 (a (2, 2) mesh): the
+  flagship path, then the graph forced onto the COO route with the tables
+  replicated and row-sharded, the two train losses within 2e-5.
 """
 import json
 import os
@@ -165,3 +167,7 @@ def test_cli_find_lambda_on_a_mesh_matches_jax(cli_run):
 
 def test_dryrun_multichip_runs():
     dryrun_multichip(2)
+
+
+def test_dryrun_multichip_runs_at_four_ranks():
+    dryrun_multichip(4)

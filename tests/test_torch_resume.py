@@ -268,3 +268,43 @@ def test_jax_state_resumes_in_the_port(tmp_path, monkeypatch):
     for g, w in zip(got.params, want.params):
         assert g.dtype == torch.float64
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=0, atol=1e-10)
+
+
+def test_jax_table_sharded_coo_state_loads_in_the_port(tmp_path):
+    """A JAX run on a (2, 4) mesh with ``compute.coo_table_sharding`` (the
+    COO route forced) checkpoints its tables and Adam moments padded to the
+    model axis (52 x 12 and 72 x 12 for 50 x 70). ``train_state_from_jax``
+    with the true catalog cuts the zero padding; the port then resumes the
+    state on one device, on the COO route, from the epoch after it."""
+    graphs = _graph_pair(17)
+    over = {"hparams.embedding_dim": D, "hparams.epochs": 8, "hparams.epoch_per_eval": 4,
+            "hparams.batch_size": 32, "k": 5, "compute.dense_threshold": 1.0}
+    j_cfg = j_load_config(dataset="synthetic", model="LightGCN", overrides={
+        **over, "hparams.epoch_per_eval": 7, "compute.mesh_shape": (2, 4),
+        "compute.coo_table_sharding": True})
+    jdir, tdir = str(tmp_path / "j"), str(tmp_path / "t")
+    jtrainer.train_lightgcn(graphs[0], j_cfg, save_artifacts=False, checkpoint_dir=jdir,
+                            checkpoint_every=7)
+    like = JParams(jnp.zeros((52, D)), jnp.zeros((72, D)))
+    epoch, j_params, j_opt = jckpt.restore_train_state(
+        jdir, like, jtrainer.make_optimizer(j_cfg.hparams).init(like))
+    j_params, j_opt = jax.tree.map(np.asarray, (j_params, j_opt))
+    assert epoch == 7 and j_params.user_emb.shape == (52, D)
+    with pytest.raises(ValueError, match="not zero padding"):
+        tckpt.train_state_from_jax(j_params, j_opt, n_users=U - 1, n_items=I)
+
+    params, state = tckpt.train_state_from_jax(j_params, j_opt, n_users=U, n_items=I)
+    adam = j_opt.inner_state[0]
+    for name, n in (("user_emb", U), ("item_emb", I)):
+        np.testing.assert_array_equal(getattr(params, name).numpy(),
+                                      getattr(j_params, name)[:n])
+        np.testing.assert_array_equal(state[name]["exp_avg"].numpy(), getattr(adam.mu, name)[:n])
+        np.testing.assert_array_equal(state[name]["exp_avg_sq"].numpy(),
+                                      getattr(adam.nu, name)[:n])
+        assert float(state[name]["step"]) == 8.0
+    tckpt.save_train_state(tdir, epoch, params, state)
+    got = ttrainer.train_lightgcn(graphs[1], tcfg.load_config(
+        dataset="synthetic", model="LightGCN", overrides={**over, "hparams.epochs": 13}),
+        save_artifacts=False, checkpoint_dir=tdir, device="cpu")
+    assert got.history["iters"] == [8, 12]
+    assert all(np.isfinite(v) for col in got.history.values() for v in col)

@@ -324,27 +324,64 @@ def test_unported_branches_raise_with_roadmap_pointers():
         ttrainer.train_lightgcn(tg, cfg, save_artifacts=False, device="cpu")
 
 
-@pytest.mark.parametrize("what", ["coo", "coo_table_sharding"])
-def test_mesh_coo_routes_raise_with_roadmap_pointers(tmp_path, what):
-    """The trainer's mesh function on a world-1 gloo mesh: a graph that
-    takes the COO propagation (``dense_threshold=1.0``), and
-    ``coo_table_sharding``, are the second half of queue 1 item 7."""
+def _on_world_one_mesh(tmp_path, fn):
+    """fn(mesh) on a (1, 1) mesh of a world-1 gloo group (file store)."""
     import torch.distributed as dist
 
     from lgcnhs_tpu_torch.runtime.mesh import make_mesh
 
-    _, tg = _graph_pair(7)
-    compute = {"coo": {"dense_threshold": 1.0}, "coo_table_sharding": {
-        "coo_table_sharding": True}}[what]
-    base = tcfg.load_config(dataset="synthetic", overrides={"hparams.epochs": 1})
-    cfg = base.replace(compute=base.compute.__class__(**compute))
+    tmp_path.mkdir(parents=True, exist_ok=True)
     dist.init_process_group("gloo", init_method=f"file://{tmp_path / 'store'}", world_size=1,
                             rank=0)
     try:
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 7"):
-            ttrainer.train_lightgcn_on_mesh(tg, cfg, make_mesh((1, 1)), save_artifacts=False)
+        return fn(make_mesh((1, 1)))
     finally:
         dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("what", ["coo", "coo_table_sharding"])
+def test_mesh_coo_routes_train_on_a_world_one_mesh(tmp_path, what):
+    """The trainer's mesh function on a world-1 gloo mesh trains a graph
+    that takes the COO propagation (``dense_threshold=1.0``), with the
+    tables replicated or row-sharded (``coo_table_sharding``), as the
+    single-device COO route does: the same triples, sums in another order
+    (histories within 2e-5, tables within 1e-5)."""
+    _, tg = _graph_pair(7)
+    over = {"hparams.epochs": 6, "hparams.epoch_per_eval": 3, "hparams.batch_size": 64,
+            "hparams.embedding_dim": D, "k": 5, "compute.dense_threshold": 1.0}
+    cfg = tcfg.load_config(dataset="synthetic", overrides={
+        **over, "compute.coo_table_sharding": what == "coo_table_sharding"})
+    want = ttrainer.train_lightgcn(tg, tcfg.load_config(dataset="synthetic", overrides=over),
+                                   save_artifacts=False, device="cpu")
+    got = _on_world_one_mesh(tmp_path, lambda mesh: ttrainer.train_lightgcn_on_mesh(
+        tg, cfg, mesh, save_artifacts=False))
+    assert got.history["iters"] == want.history["iters"] == [0, 3]
+    for col, series in want.history.items():
+        np.testing.assert_allclose(got.history[col], series, rtol=0, atol=2e-5, err_msg=col)
+    for g, w in zip(got.params, want.params):
+        assert g.shape == w.shape
+        np.testing.assert_allclose(g.numpy(), w.numpy(), rtol=0, atol=1e-5)
+
+
+def test_coo_table_sharding_on_a_dense_graph_is_logged_and_trains(tmp_path, monkeypatch):
+    """``coo_table_sharding`` on a graph that takes the dense route: logged,
+    and the dense mesh plan trains as without it (JAX warns and carries on,
+    ``lgcnhs_tpu/train/trainer.py:452-456``)."""
+    _, tg = _graph_pair(7)
+    over = {"hparams.epochs": 4, "hparams.epoch_per_eval": 2, "hparams.batch_size": 64,
+            "hparams.embedding_dim": D, "k": 5}
+    warned = []
+    monkeypatch.setattr(ttrainer.get_logger(), "warning",
+                        lambda msg, *a: warned.append(msg % a))
+    runs = [_on_world_one_mesh(tmp_path / str(flag), lambda mesh: ttrainer.train_lightgcn_on_mesh(
+        tg, tcfg.load_config(dataset="synthetic", overrides={
+            **over, "compute.coo_table_sharding": flag}), mesh, save_artifacts=False))
+        for flag in (True, False)]
+    assert any("coo_table_sharding requested but the graph takes the dense path" in m
+               for m in warned)
+    assert runs[0].history == runs[1].history
+    for a, b in zip(runs[0].params, runs[1].params):
+        assert torch.equal(a, b)
 
 
 def test_auto_mesh_on_one_rank_keeps_the_bf16_dense_route(monkeypatch):

@@ -164,7 +164,119 @@ def suite_cli(inp, mesh, out):
     out["stdout"] = stdout.getvalue()
 
 
-SUITES = {"train": suite_train, "serve": suite_serve, "sweep": suite_sweep, "cli": suite_cli}
+def suite_coo(inp, mesh, out):
+    """The edge-sharded COO half: the rank's edge blocks, one step of each
+    layout and of the table-sharded plan on injected triples, the
+    table-sharded scan against its step loop, the user-sharded CSR top-k,
+    and the mesh trainer on the COO route with both plans (single-device
+    COO factories poisoned), uninterrupted and resumed."""
+    import numpy as np
+    import torch
+
+    from lgcnhs_tpu_torch.data.datasets import load_dataset
+    from lgcnhs_tpu_torch.data.graph import EdgeSet, build_graph
+    from lgcnhs_tpu_torch.models.lightgcn import LightGCNParams
+    from lgcnhs_tpu_torch.ops.scalable import csr_keys, user_csr
+    from lgcnhs_tpu_torch.parallel import sharding
+    from lgcnhs_tpu_torch.train import trainer
+    from lgcnhs_tpu_torch.train.checkpoint import optimizer_state
+
+    U, I = int(inp["U"]), int(inp["I"])
+    eu, ei, norm = inp["eu"], inp["ei"], inp["norm"]
+    plan = sharding.make_plan(mesh)
+    U_pad, I_pad = sharding.padded_catalog(plan, U, I)
+    order = sharding.shard_coo_edges(plan, eu, ei, norm)
+    for field, value in zip(order._fields, order):
+        out[f"order.{field}"] = value
+    hp = _cfg(inp, "f32", **{"hparams.embedding_dim": int(inp["D"])}).hparams
+    edge_users, edge_items = (torch.from_numpy(a.astype(np.int64)) for a in (eu, ei))
+    keys = csr_keys(*user_csr(U, EdgeSet(eu, ei)), mesh.device)
+    se = {"bucketed": sharding.shard_bucketed_incidence(plan, eu, ei, norm, U, I),
+          "segment": order}
+    se_pad = sharding.shard_bucketed_incidence(plan, eu, ei, norm, U_pad, I_pad)
+
+    def tables(sharded):
+        init = LightGCNParams(torch.from_numpy(inp["ue0"]), torch.from_numpy(inp["ie0"]))
+        blocks = sharding.shard_params(plan, init) if sharded else init
+        return LightGCNParams(*(t.clone().requires_grad_(True) for t in blocks))
+
+    def keep(prefix, params, loss):
+        out[f"{prefix}.loss"] = loss
+        for name, t in zip(LightGCNParams._fields, params):
+            out[f"{prefix}.{name}"] = t.detach()
+
+    # one step on the injected triples (the sampler's draws replaced)
+    triples = tuple(torch.from_numpy(inp[n].astype(np.int64))
+                    for n in ("t_users", "t_pos", "t_neg"))
+    sampler = sharding.sample_bpr_batch_csr
+    sharding.sample_bpr_batch_csr = lambda *a, **kw: triples
+    try:
+        for layout in ("bucketed", "segment"):
+            params = tables(False)
+            step = sharding.make_sharded_coo_train_step(
+                plan, trainer.make_optimizer(hp, params), hp, U, I, layout=layout)
+            keep(f"step.{layout}", params,
+                 step(params, 0, None, se[layout], edge_users, edge_items, keys))
+        params = tables(True)
+        opt = trainer.make_optimizer(hp, params)
+        step = sharding.make_table_sharded_coo_train_step(plan, opt, hp, U, I)
+        keep("ts", params, step(params, 0, None, se_pad, edge_users, edge_items, keys))
+        for name, moments in optimizer_state(opt, params).items():
+            for m in ("exp_avg", "exp_avg_sq"):
+                out[f"ts.{name}.{m}"] = moments[m]
+    finally:
+        sharding.sample_bpr_batch_csr = sampler
+
+    # the table-sharded scan against its step loop, on the (5, epoch) draws
+    params = tables(True)
+    step = sharding.make_table_sharded_coo_train_step(plan, trainer.make_optimizer(hp, params),
+                                                      hp, U, I)
+    for e in range(3):
+        loss = step(params, e, trainer.epoch_generator(5, e, mesh.device), se_pad, edge_users,
+                    edge_items, keys)
+    keep("ts_step", params, loss)
+    params = tables(True)
+    scan = sharding.make_table_sharded_coo_train_scan(plan, trainer.make_optimizer(hp, params),
+                                                      hp, U, I)
+    keep("ts_scan", params, scan(params, 5, 0, 3, se_pad, edge_users, edge_items, keys))
+
+    out["csr53"] = sharding.distributed_csr_masked_topk(
+        mesh, torch.from_numpy(inp["ue53"]), torch.from_numpy(inp["ie53"]), inp["rowptr53"],
+        inp["cols53"], int(inp["k53"]))
+    # 5 users in blocks of ceil(5 / ranks): on 4 ranks the last block is empty
+    rowptr5 = inp["rowptr53"][:6]
+    out["csr5"] = sharding.distributed_csr_masked_topk(
+        mesh, torch.from_numpy(inp["ue53"][:5]), torch.from_numpy(inp["ie53"]), rowptr5,
+        inp["cols53"][:rowptr5[-1]], int(inp["k53"]))
+
+    def poison(*a, **kw):
+        raise AssertionError("single-device COO factory built on a mesh")
+
+    trainer.make_coo_train_step = trainer.build_bucketed_incidence = poison
+    graph = build_graph(load_dataset(_cfg(inp, "f32"), "cpu")[0])
+    for name, sharded in (("replicated", False), ("table_sharded", True)):
+        over = {"compute.mesh_shape": tuple(int(x) for x in inp["mesh"]),
+                "compute.dense_threshold": 1.0, "compute.coo_table_sharding": sharded}
+        result = trainer.train_lightgcn(graph, _cfg(inp, "f32", **over), save_artifacts=False,
+                                        device="cpu")
+        keep(f"train.{name}", result.params, 0)
+        for col, series in result.history.items():
+            out[f"train.{name}.history.{col}"] = np.asarray(series, np.float64)
+        # resume: 8 epochs with a checkpoint at 7, then on to 14, against 14
+        resume = {**over, "hparams.epoch_per_eval": 7}
+        ckpt = os.path.join(str(inp["tmp"]), f"ckpt_{name}")
+        runs = {}
+        for tag, epochs, ckpt_dir in (("full", 14, None), ("first", 8, ckpt),
+                                      ("resumed", 14, ckpt)):
+            runs[tag] = trainer.train_lightgcn(
+                graph, _cfg(inp, "f32", **resume, **{"hparams.epochs": epochs}),
+                save_artifacts=False, checkpoint_dir=ckpt_dir, checkpoint_every=7, device="cpu")
+        for tag in ("full", "resumed"):
+            keep(f"resume.{name}.{tag}", runs[tag].params, 0)
+
+
+SUITES = {"train": suite_train, "serve": suite_serve, "sweep": suite_sweep, "cli": suite_cli,
+          "coo": suite_coo}
 
 
 def main() -> None:
