@@ -192,6 +192,29 @@ neither JAX nor ``lgcnhs_tpu``. Phases:
    efficiency 1.0 (each rung its own NCCL process group). Launch counts
    set to 0 before each run and read after; each row's mesh and
    single-device ms, the CSR evaluation's retrieval and I@k seconds.
+11. The last modules (``experimental_phase``, after phase 10; a 30 s
+   budget, its time printed): (a) the experimental autoencoders
+   (``models/experimental.py``) on the ML-100K stand-in (943 x 1684, its own
+   user and item features, a joint adjacency of 2627^2) through
+   ``load_pipeline``: ``train_autoencoder`` for ``gcn`` and ``gat``,
+   ``AE_EPOCHS`` epochs each on the card and on the CPU from one injected
+   init, the history within ``AE_HISTORY_RTOL`` relative at every epoch,
+   the parameters within ``AE_PARAM_TOL`` of scale, each kind's ms an
+   epoch on both and its own peak device memory (above what the
+   earlier phases hold); ``hybrid_gat_fusion`` on the
+   card's GAT parameters, its top-100 lists on the card tie-equivalent to
+   the CPU's under the f64 fused scores; then, in a fresh process as a user
+   runs them (``cli_child``), (b) ``cli/main --model LightGCNOpti
+   --profile DIR`` on phase 4's trained ML-1M checkpoint between two runs
+   without it: the metric line equal to theirs, one
+   ``fused_topk_retrieval`` launch in each, one trace file holding a CUDA
+   kernel event of ``fused_topk_kernel`` (CUPTI sees the ctypes launches),
+   the trace's overhead in host seconds, and (c) ``cli/parity_report`` on
+   the card: ``{"reference": false}`` (no reference checkout there) and
+   exit 0. (b) runs in a fresh process because late in this long process
+   the profiler has lost card records (``tools/profile_probe.py`` probes
+   that; PERF.md). Launch counts set to 0 before each run and read after:
+   no hand kernel runs in (a).
 
 Prints one PASS/FAIL line per check, then (all passed) the kernel JSON line,
 the ``nvidia-smi`` name/power-limit line, and the final
@@ -309,6 +332,13 @@ DISTRIBUTED = "fused_topk_retrieval@distributed_csr_masked_topk"
 LAYOUT_REL_TOL = 1e-5
 TABLE_SHARDED_HISTORY_TOL = 2e-5
 RESUME_EPOCHS_10, RESUME_STOP_10, RESUME_EVERY_10 = 14, 8, 7
+# phase 11, the experimental autoencoders at ML-100K: 100 full-batch epochs
+# of each kind at the JAX default width, the card against the CPU from one
+# init (f32 sums in another order: the tolerances of the kernel-vs-twin
+# route, TWIN_LOSS_TOL and TWIN_TABLE_TOL, relative here), and
+# hybrid_gat_fusion at the JAX test's lambda
+AE_EPOCHS, AE_HIDDEN, AE_LAMBDA = 100, 64, 0.5
+AE_HISTORY_RTOL, AE_PARAM_TOL = 1e-4, 1e-3
 W2V_STORY_DOCS = 300  # the CPU side of the storyline check trains on these
 # Douban: 160,000 users at 6.5 ratings each, the ratio of the public dump
 # (~4.2 M ratings by ~640,000 users); the preset keeps the users whose rating
@@ -1254,6 +1284,32 @@ def count_launches(kernels, run):
     return result, counted
 
 
+def count_site_launches(kernels, fn):
+    """(fn(), its launches by kernel name): ``count_launches``, with the
+    retrieval launches made at the mesh CSR site
+    (``parallel/sharding.chunked_masked_topk``) apart, under ``DISTRIBUTED``."""
+    from lgcnhs_tpu_torch.ops.cuda import retrieval as rt
+    from lgcnhs_tpu_torch.parallel import sharding
+
+    saved, inside = sharding.chunked_masked_topk, [0]
+
+    def site(*a, **kw):
+        before = rt.fused_topk_retrieval.launches
+        try:
+            return saved(*a, **kw)
+        finally:
+            inside[0] += rt.fused_topk_retrieval.launches - before
+
+    sharding.chunked_masked_topk = site
+    try:
+        out, got = count_launches(kernels, fn)
+    finally:
+        sharding.chunked_masked_topk = saved
+    got["fused_topk_retrieval"] -= inside[0]
+    got[DISTRIBUTED] = inside[0]
+    return out, got
+
+
 def mesh_phase(check, dev, smi, env):
     """Phase 9: the mesh on NCCL at world size 1 (module docstring). Returns
     its launches by kernel and its rows."""
@@ -1539,36 +1595,24 @@ def mesh_large_phase(check, dev, smi, env):
         return call
 
     def counted(fn):
-        """fn() with its launches counted (``count_launches``; the mesh's CSR
-        evaluation's retrieval launches apart, under ``DISTRIBUTED``), its
+        """fn() with its launches counted (``count_site_launches``: the mesh's
+        CSR evaluation's retrieval launches apart, under ``DISTRIBUTED``), its
         CSR retrieval and I@k host seconds (the card synchronized around each
         call); phase 10's main-path launches."""
         saved = (sharding.chunked_masked_topk, trainer.internal_similarity_csr,
                  trainer.chunked_masked_topk)
-        inside = [0]
         probe["retrieval_s"], probe["iak_s"] = [], []
-        timed_topk = timed(saved[0], probe["retrieval_s"])
-        trainer.chunked_masked_topk = timed(saved[2], probe["retrieval_s"])
-
-        def site(*a, **kw):
-            before = rt.fused_topk_retrieval.launches
-            try:
-                return timed_topk(*a, **kw)
-            finally:
-                inside[0] += rt.fused_topk_retrieval.launches - before
-
-        sharding.chunked_masked_topk = site
+        sharding.chunked_masked_topk = timed(saved[0], probe["retrieval_s"])
         trainer.internal_similarity_csr = timed(saved[1], probe["iak_s"])
+        trainer.chunked_masked_topk = timed(saved[2], probe["retrieval_s"])
         try:
             t0 = time.perf_counter()
-            out, got = count_launches(kernels, fn)
+            out, got = count_site_launches(kernels, fn)
             torch.cuda.synchronize()
             secs = time.perf_counter() - t0
         finally:
             (sharding.chunked_masked_topk, trainer.internal_similarity_csr,
              trainer.chunked_masked_topk) = saved
-        got["fused_topk_retrieval"] -= inside[0]
-        got[DISTRIBUTED] = inside[0]
         for name, n in got.items():
             launches[name] += n
         return out, got, secs
@@ -2126,6 +2170,216 @@ def ingestion_phase(check, dev, smi, clock):
         logging.getLogger("lgcnhs").removeHandler(keep)
         shutil.rmtree(work, ignore_errors=True)
     return out
+
+
+def trace_summary(trace_dir):
+    """(trace files, events, events by category, card kernel names, MB) of a
+    ``--profile`` directory; events only when it holds one file."""
+    files = [n for n in os.listdir(trace_dir) if n.endswith(".pt.trace.json")]
+    events, mb = [], 0.0
+    if len(files) == 1:
+        path = os.path.join(trace_dir, files[0])
+        mb = os.path.getsize(path) / 1e6
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    cats, card_kernels = {}, set()
+    for e in events:
+        cats[e.get("cat")] = cats.get(e.get("cat"), 0) + 1
+        if e.get("cat") == "kernel":
+            card_kernels.add(e.get("name", "")[:60])
+    return files, len(events), cats, sorted(card_kernels), mb
+
+
+def cli_child():
+    """Phase 11 (b) and (c) in a fresh process, as a user runs the CLIs:
+    ``python -c "import chip_smoke; chip_smoke.cli_child()" ARGV TRACE_DIR
+    PARITY_WORKDIR`` runs ``cli/main`` with the JSON list ARGV without, with
+    (``--profile TRACE_DIR``) and again without ``--profile``, then
+    ``cli/parity_report`` (ARGV begins with ``--device``, which both take),
+    and prints one JSON line last: each run's metrics,
+    launches (``count_site_launches``) and host seconds, and the report's
+    return."""
+    from lgcnhs_tpu_torch.cli import main as cli_main
+    from lgcnhs_tpu_torch.cli import parity_report
+    from lgcnhs_tpu_torch.ops.cuda import fusion_serve as fs
+    from lgcnhs_tpu_torch.ops.cuda import propagation as prop
+    from lgcnhs_tpu_torch.ops.cuda import retrieval as rt
+
+    argv, trace_dir, parity_work = json.loads(sys.argv[1]), sys.argv[2], sys.argv[3]
+    kernels = {"fused_topk_retrieval": rt.fused_topk_retrieval,
+               "fused_lgcnhs_serve": fs.fused_lgcnhs_serve, "dual_matmul": prop.dual_matmul}
+    runs = []
+    for extra in ([], ["--profile", trace_dir], []):
+        t0 = time.perf_counter()
+        # the metrics are host floats: the card has finished the run
+        metrics, got = count_site_launches(kernels, lambda: cli_main.main(argv + extra))
+        runs.append({"metrics": metrics, "launches": got, "s": time.perf_counter() - t0})
+    report = parity_report.main([*argv[:2], "--dataset", "movielens1m", "--env", "prod",
+                                 "--workdir", parity_work])
+    print(json.dumps({"runs": runs, "parity_report": report}))
+
+
+def experimental_phase(check, dev, smi, env):
+    """Phase 11: the experimental autoencoders at ML-100K, ``cli/main
+    --profile`` on phase 4's trained checkpoint and ``cli/parity_report``
+    (module docstring). Returns its launches by kernel and call site and its
+    rows."""
+    import numpy as np
+    import torch
+
+    from lgcnhs_tpu_torch import config as tcfg
+    from lgcnhs_tpu_torch.cli.common import load_pipeline
+    from lgcnhs_tpu_torch.data.fetch import ml100k_paths
+    from lgcnhs_tpu_torch.data.graph import interaction_matrix
+    from lgcnhs_tpu_torch.data.raw_standins import write_ml100k
+    from lgcnhs_tpu_torch.models import experimental as ex
+    from lgcnhs_tpu_torch.ops import diffusion as tdiff
+    from lgcnhs_tpu_torch.ops.topk import MASK_VALUE, masked_topk
+
+    kernels = env["kernels"]
+    launches = dict.fromkeys([*kernels, CHUNKED, DISTRIBUTED], 0)
+    rows = []
+    no_kernel = dict.fromkeys(launches, 0)
+
+    def add(got):
+        for name, n in got.items():
+            launches[name] += n
+
+    def counted(fn):
+        """(fn(), its launches, its host seconds), the launches added to
+        phase 11's."""
+        t0 = time.perf_counter()
+        out, got = count_site_launches(kernels, fn)
+        torch.cuda.synchronize()
+        add(got)
+        return out, got, time.perf_counter() - t0
+
+    def row(name, **values):
+        rows.append({"name": name, **values})
+        print(f"[phase 11] {name}: {json.dumps(values)} [{smi}]", flush=True)
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_experimental_",
+                            dir=os.path.join(ROOT, "artifacts"))
+    try:
+        # (a) the autoencoders on the ML-100K stand-in, its own features
+        data_dir = os.path.join(work, "ml-100k")
+        write_ml100k(data_dir)
+        cfg = tcfg.load_config(env="prod", dataset="movielens", workdir=work, overrides={
+            "preprocessing.dataset_paths": ml100k_paths(data_dir)})
+        cfg.ensure_dirs()
+        graph, uf, itf, _ = load_pipeline(cfg, dev)
+        U, I = graph.n_users, graph.n_items
+        R = interaction_matrix(U, I, graph.train)
+        width = max(uf.shape[1], itf.shape[1])
+        init = ex.init_autoencoder(torch.Generator().manual_seed(SEED), width, AE_HIDDEN)
+        print(f"[phase 11] autoencoders: {U} x {I} train incidence ({graph.train.n_edges} "
+              f"edges), joint adjacency {U + I}^2, features {uf.shape[1]} / {itf.shape[1]} "
+              f"padded to {width}, hidden {AE_HIDDEN}, {AE_EPOCHS} epochs", flush=True)
+        trained = {}
+        for kind in ex.KINDS:
+            runs = {}
+            for where, device in (("the card", dev), ("the CPU", "cpu")):
+                torch.cuda.reset_peak_memory_stats()
+                held = torch.cuda.memory_allocated()  # by the earlier phases
+                out, got, secs = counted(lambda: ex.train_autoencoder(
+                    R, uf, itf, hidden_dim=AE_HIDDEN, epochs=AE_EPOCHS, kind=kind, init=init,
+                    device=device))
+                runs[where] = (out, secs, (torch.cuda.max_memory_allocated() - held) / 1e9)
+                check(f"train_autoencoder {kind} on {where}: no hand kernel launched",
+                      got == no_kernel, f"{got}")
+            (pc, hc), card_s, peak = runs["the card"]
+            (pp, hp), cpu_s, _ = runs["the CPU"]
+            hist_gap = max(abs(a - b) / abs(b) for a, b in zip(hc, hp))
+            param_gap = max(((a.cpu() - b).abs().max() / b.abs().max()).item()
+                            for a, b in zip(pc, pp))
+            check(f"train_autoencoder {kind}: the card's history within {AE_HISTORY_RTOL:g} "
+                  "relative of the CPU's at every epoch, falling, finite",
+                  len(hc) == AE_EPOCHS and hist_gap <= AE_HISTORY_RTOL
+                  and all(math.isfinite(v) for v in hc) and hc[-1] < hc[0],
+                  f"max gap {hist_gap:.3e}; loss {hc[0]:.6f} -> {hc[-1]:.6f}")
+            check(f"train_autoencoder {kind}: the card's parameters within {AE_PARAM_TOL:g} "
+                  "of scale of the CPU's", param_gap <= AE_PARAM_TOL, f"{param_gap:.3e}")
+            row(f"train_autoencoder {kind}", shape=f"{U}x{I}", epochs=AE_EPOCHS,
+                card_ms_per_epoch=card_s * 1e3 / AE_EPOCHS,
+                cpu_ms_per_epoch=cpu_s * 1e3 / AE_EPOCHS, peak_device_gb=peak,
+                history_max_rel_gap=hist_gap, param_max_rel_gap=param_gap,
+                loss_first_last=[hc[0], hc[-1]])
+            trained[kind] = pc
+
+        # hybrid_gat_fusion on the card's GAT parameters, on the card and on
+        # the CPU, lists read against the f64 fused scores
+        params = trained["gat"]
+        fused_card, got_f, fuse_s = counted(
+            lambda: ex.hybrid_gat_fusion(params, R, uf, itf, AE_LAMBDA))
+        fused_cpu = ex.hybrid_gat_fusion(ex.MLPGraphParams(*(t.cpu() for t in params)),
+                                         R, uf, itf, AE_LAMBDA)
+        check("hybrid_gat_fusion on the card: no hand kernel launched", got_f == no_kernel,
+              f"{got_f}")
+        seen = torch.from_numpy(R > 0).to(dev)
+        Xu = np.pad(uf, ((0, 0), (0, width - uf.shape[1])))
+        Xi = np.pad(itf, ((0, 0), (0, width - itf.shape[1])))
+        X64 = torch.from_numpy(np.vstack([Xu, Xi]).astype(np.float32)).to(dev).double()
+        R64 = torch.from_numpy(R).to(dev).double()
+        p64 = ex.MLPGraphParams(*(t.double() for t in params))
+        Zu, Zi = ex.gat_autoencoder_forward(p64, R64, X64[:U], X64[U:])
+        ref = (Zu @ Zi.T) * tdiff.diffusion_scores(R64, torch.tensor(AE_LAMBDA,
+                                                                      dtype=torch.float64))
+        ref.masked_fill_(seen, MASK_VALUE)
+        got_ids = masked_topk(fused_card, seen, K_SLICE)
+        want_ids = masked_topk(fused_cpu.to(dev), seen, K_SLICE)
+        agreement, gap = tie_equivalence(torch, want_ids, got_ids, ref)
+        check(f"hybrid_gat_fusion top-{K_SLICE}: the card's lists tie-equivalent to the CPU's",
+              agreement >= AGREEMENT_MIN and gap <= GAP_MAX,
+              f"agreement {agreement:.6f}, mismatched-slot max relative gap {gap:.3e}")
+        row("hybrid_gat_fusion", shape=f"{U}x{I}", k=K_SLICE, card_ms=fuse_s * 1e3,
+            agreement=agreement, max_rel_gap=gap)
+        del ref, Zu, Zi, R64, X64, seen
+
+        # (b) cli/main --profile on phase 4's trained ML-1M checkpoint, between
+        # two runs without it, and (c) cli/parity_report: in a fresh process,
+        # as a user runs them
+        trace_dir = os.path.join(work, "trace")
+        argv = ["--device", dev.type, "--workdir", env["train_work"], "--model", "LightGCNOpti",
+                *env["ml1m"], "--no-cache"]
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-c", "import chip_smoke; chip_smoke.cli_child()", json.dumps(argv),
+             trace_dir, os.path.join(work, "parity")],
+            cwd=ROOT, capture_output=True, text=True, timeout=600)
+        child_s = time.perf_counter() - t0
+        lines = proc.stdout.strip().splitlines()
+        if not check("cli/main x3 and cli/parity_report in a fresh process: exit 0",
+                     proc.returncode == 0, f"rc {proc.returncode}; {child_s:.1f} s host"
+                     + (f"; {proc.stderr[-3000:]}" if proc.returncode else "")):
+            return None
+        result = json.loads(lines[-1])
+        (plain, profiled, again) = result["runs"]
+        for run in result["runs"]:
+            add(run["launches"])
+        one = {**no_kernel, "fused_topk_retrieval": 1}
+        check("cli/main --profile: the metric line equals the runs without it",
+              profiled["metrics"] == plain["metrics"] == again["metrics"],
+              f"{profiled['metrics']} against {plain['metrics']}, {again['metrics']}")
+        check("cli/main with and without --profile: one fused_topk_retrieval launch each",
+              all(run["launches"] == one for run in result["runs"]),
+              f"{[run['launches'] for run in result['runs']]}")
+        files, n_events, cats, card_kernels, trace_mb = trace_summary(trace_dir)
+        fused = [k for k in card_kernels if "fused_topk_kernel" in k]
+        check("cli/main --profile: one trace file, holding a CUDA kernel event of "
+              "fused_topk_kernel", len(files) == 1 and bool(fused),
+              f"files {files}, {n_events} events by category {cats}, {trace_mb:.1f} MB, "
+              f"{len(card_kernels)} card kernels, fused {fused}")
+        row("cli/main LightGCNOpti movielens1m trained, --profile",
+            plain_s=[plain["s"], again["s"]], profiled_s=profiled["s"],
+            overhead_s=profiled["s"] - (plain["s"] + again["s"]) / 2, trace_events=n_events,
+            trace_mb=trace_mb, process_s=child_s)
+        check("cli/parity_report on the card: returns and prints {\"reference\": false}",
+              result["parity_report"] == {"reference": False}
+              and '{"reference": false}' in lines[:-1], f"{result['parity_report']}")
+
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return {"launches": launches, "rows": rows}
 
 
 def main() -> int:
@@ -2883,7 +3137,6 @@ def main() -> int:
         print(f"[phase 7] rows {json.dumps(phase7['runs'])}", flush=True)
     torch.cuda.empty_cache()
     shutil.rmtree(work, ignore_errors=True)
-    shutil.rmtree(train_work, ignore_errors=True)
 
     # -- 5. timings at the main path's shapes ------------------------------
     print(f"[phase 5] timings on {smi}", flush=True)
@@ -3295,6 +3548,19 @@ def main() -> int:
         check(f"phase 10: the retrieval kernel at the distributed CSR site: ids identical to "
               "its plain twin on the first chunk", site["ids_identical"],
               f"max_abs_err {site['max_abs_err']:.3e}")
+
+    # -- 11. the experimental models, --profile and cli/parity_report --------
+    print(f"[phase 11] autoencoders, --profile and parity_report on {smi}", flush=True)
+    t0 = time.perf_counter()
+    phase11 = check.guard("phase 11", experimental_phase, check, dev, smi,
+                          {"kernels": main_kernels, "train_work": train_work, "ml1m": ml1m})
+    shutil.rmtree(train_work, ignore_errors=True)
+    if phase11:
+        print(f"[phase 11] {time.perf_counter() - t0:.1f} s (budget 30 s); launches "
+              f"{phase11['launches']} [{smi}]", flush=True)
+        print(f"[phase 11] rows {json.dumps(phase11['rows'])}", flush=True)
+        for row in report:
+            row["phase11_launches"] = phase11["launches"][row["name"]]
 
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
     if check.failures:

@@ -14,9 +14,10 @@ with ``--device cpu`` the ranks are CPU processes on gloo);
 ``distributed_run`` starts and ends the process group, and
 ``load_pipeline`` loads the data on rank 0 and hands it to the others.
 ``--coo-table-sharding`` row-shards the tables on a mesh that trains a
-graph on the COO route. Flags left out: ``--platform``, ``--profile`` and
-``--scan-chunk``, JAX-only (the platform pin, ``jax.profiler``, the
-``lax.scan`` chunking).
+graph on the COO route. ``--profile DIR`` makes ``cli/main`` record a
+``torch.profiler`` trace (``runtime/logging.profile_trace``). Flags left
+out: ``--platform`` (``--device`` plays its part) and ``--scan-chunk`` (no
+``lax.scan`` to chunk).
 """
 from __future__ import annotations
 
@@ -112,6 +113,13 @@ def base_parser(description: str) -> argparse.ArgumentParser:
         "minibatch rows exchanged shard-by-shard. Requires --mesh and a graph on the COO path",
     )
     p.add_argument("--no-cache", action="store_true", help="ignore cached artifacts")
+    p.add_argument(
+        "--profile",
+        default=None,
+        metavar="DIR",
+        help="record a torch.profiler trace of the run into DIR "
+        "(TensorBoard's *.pt.trace.json, one file a rank)",
+    )
     return p
 
 

@@ -12,6 +12,9 @@ Usage:
       --model SpreadLightGCNOpti --workdir artifacts [--data-dir DIR] \\
       [--no-cache] [--device cpu]
 
+``--profile DIR`` records a ``torch.profiler`` trace of the run (the host,
+and the card on CUDA) into DIR, one ``*.pt.trace.json`` a rank.
+
 ``--target-user`` logs one user's list by RAW dataset id (a Douban md5 or a
 MovieLens id, tried as given and then as an int), decoded through the id
 mappings (``data/idmap.py``); ``--target-user-internal`` takes the internal
@@ -37,7 +40,7 @@ from lgcnhs_tpu_torch.eval.metrics import EvalContext, evaluate_recommendations
 from lgcnhs_tpu_torch.models.recommenders import recommend
 from lgcnhs_tpu_torch.runtime.cache import ArtifactCache
 from lgcnhs_tpu_torch.runtime.device import resolve_device
-from lgcnhs_tpu_torch.runtime.logging import get_logger
+from lgcnhs_tpu_torch.runtime.logging import get_logger, profile_trace
 from lgcnhs_tpu_torch.runtime.mesh import barrier, is_writer
 
 
@@ -61,7 +64,7 @@ def main(argv=None) -> dict:
     args = parser.parse_args(argv)
     device = resolve_device(args.device)
     cfg = config_from_args(args)
-    with distributed_run(cfg, device):
+    with distributed_run(cfg, device), profile_trace(args.profile, device):
         return _run(args, cfg, device)
 
 

@@ -1,9 +1,10 @@
-"""Logging + stage timing.
+"""Logging, stage timing and profiling.
 
 Port of ``lgcnhs_tpu/runtime/logging.py``: the console DEBUG + timestamped
 file INFO handlers and the ``@calTimes``-style wall-clock timer of the
-reference's ``utils/log.py`` / ``utils/wrapper.py``. The JAX profiler context
-has no counterpart here.
+reference's ``utils/log.py`` / ``utils/wrapper.py``, and ``profile_trace``,
+which records a ``torch.profiler`` trace where JAX records a
+``jax.profiler`` one.
 """
 from __future__ import annotations
 
@@ -15,7 +16,9 @@ import time
 from datetime import datetime
 from typing import Callable, Iterator, Optional
 
-from lgcnhs_tpu_torch.runtime.mesh import is_writer
+import torch
+
+from lgcnhs_tpu_torch.runtime.mesh import is_writer, rank
 
 _FORMAT = "%(asctime)s - %(name)s - %(levelname)s - %(message)s"
 _configured: dict = {}
@@ -69,3 +72,23 @@ def timed(msg: str, logger: Optional[logging.Logger] = None) -> Callable:
         return wrapper
 
     return deco
+
+
+@contextlib.contextmanager
+def profile_trace(log_dir: Optional[str], device: torch.device | str) -> Iterator[None]:
+    """Optional ``torch.profiler`` trace of the body (the JAX package's
+    ``jax.profiler`` trace; no reference counterpart): a no-op for ``None``
+    or ``""``. Records the host's activity, and the card's when ``device`` is
+    CUDA, and writes a TensorBoard-readable ``rank<r>.<ns>.pt.trace.json``
+    into ``log_dir`` (``tensorboard_trace_handler``) on the way out: one file
+    a rank under a process group."""
+    if not log_dir:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+
+    on_card = torch.device(device).type == "cuda"
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if on_card else [])
+    handler = tensorboard_trace_handler(log_dir, worker_name=f"rank{rank()}")
+    with profile(activities=activities, on_trace_ready=handler):
+        yield

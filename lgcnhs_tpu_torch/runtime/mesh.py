@@ -43,6 +43,11 @@ def world_size() -> int:
     return dist.get_world_size() if dist.is_initialized() else 1
 
 
+def rank() -> int:
+    """This process's rank in the default process group; 0 when there is none."""
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
 def is_writer() -> bool:
     """True on the rank that writes files and prints results: rank 0, or
     the one process of a run without a process group."""

@@ -11,7 +11,8 @@ a dict of equal-length columns, as ``pd.DataFrame(dict)`` takes it;
 into one. ``read_table`` reads a file as ``pd.read_csv`` does (a separator of
 one or more characters, an encoding, a header row or given names) into
 typed numpy columns. ``read_csv`` reads back the tables the port writes,
-strictly (a row of another length raises).
+strictly (a row of another length raises). ``to_markdown`` writes a
+table as ``DataFrame.to_markdown(index=False)`` lays out its cells.
 
 Each column is written as pandas writes its inferred dtype:
 
@@ -98,6 +99,28 @@ def to_csv(columns: Mapping[str, Sequence], sep: str = ",") -> str:
     writer.writerow(names)
     writer.writerows(zip(*cells))
     return out.getvalue()
+
+
+def to_markdown(columns: Mapping[str, Sequence]) -> str:
+    """The table as a pipe table with the header and the cells that
+    ``pd.DataFrame(columns).to_markdown(index=False)`` writes (tabulate's
+    "pipe" format): floats in the "g" format, everything else by ``str``;
+    number columns right-aligned and others left, each as wide as its widest
+    cell and at least two past its name. tabulate also lines up the decimal
+    points within a float column, which this does not: the cells are the
+    same, the bytes may differ."""
+    names = list(columns)
+    cells = [[format(v, "g") if _is_float(v) else str(v) for v in columns[n]] for n in names]
+    right = [all(_is_int(v) or _is_float(v) for v in columns[n]) for n in names]
+    widths = [max([len(n) + 2] + [len(c) for c in col]) for n, col in zip(names, cells)]
+
+    def line(fields):
+        return "| " + " | ".join(f.rjust(w) if r else f.ljust(w)
+                                 for f, w, r in zip(fields, widths, right)) + " |"
+
+    rule = "|" + "|".join("-" * (w + 1) + ":" if r else ":" + "-" * (w + 1)
+                          for w, r in zip(widths, right)) + "|"
+    return "\n".join([line(names), rule] + [line(row) for row in zip(*cells)])
 
 
 def write_csv(path: str, columns: Mapping[str, Sequence], sep: str = ",") -> None:

@@ -130,3 +130,191 @@ class MeshRun:
             with np.load(os.path.join(self.tmp, f"{rank}.npz")) as data:
                 outs.append({name: data[name] for name in data.files})
         return outs
+
+
+# A stand-in for the reference checkout (``ReferenceModules`` loads these five
+# files): each imports the reference's const / utils.log / utils.wrapper, as
+# the reference's files do, so the loader's stubs serve them, and delegates
+# to the JAX package (lists from ``models.spread.recommend_spread_method`` at
+# float64, metrics from ``eval.metrics``).
+_STANDIN_MODEL = '''"""Stand-in model/SpreadMethod/model.py: the split as a graph, and the
+lists and f64 resource matrices of lgcnhs_tpu's spread models."""
+import jax
+import numpy as np
+
+from const import cfg
+from utils.log import logger
+from utils.wrapper import calTimes
+
+from lgcnhs_tpu.config import load_config
+from lgcnhs_tpu.data.graph import EdgeSet, InteractionGraph, edges_from_df, interaction_matrix
+from lgcnhs_tpu.models.spread import recommend_spread_method, spread_scores
+
+
+def graph_of(n_users, n_items, train_df, val_df):
+    train, val = edges_from_df(train_df), edges_from_df(val_df)
+    empty = EdgeSet(np.zeros(0, np.int32), np.zeros(0, np.int32))
+    return InteractionGraph(n_users, n_items, train, train, val, empty)
+
+
+def _x64(fn):
+    was = jax.config.jax_enable_x64
+    jax.config.update("jax_enable_x64", True)
+    try:
+        return fn()
+    finally:
+        jax.config.update("jax_enable_x64", was)
+
+
+def _config():
+    return load_config(dataset=cfg.DATA_SET, overrides={
+        "k": cfg.RECOMMEND["k"], "compute.dtype": "float64",
+        "hparams.lambda_": cfg.MODEL["HyperParameter"]["lambda"]})
+
+
+@calTimes(logger, "recommend")
+def recommend(graph, method):
+    return _x64(lambda: np.array(recommend_spread_method(graph, _config(), method)))
+
+
+@calTimes(logger, "scores")
+def scores(graph, method):
+    A = interaction_matrix(graph.n_users, graph.n_items, graph.train, graph.val,
+                           dtype=np.float64)
+    return _x64(lambda: np.asarray(spread_scores(A, method, cfg.DATA_SET,
+                                                 cfg.MODEL["HyperParameter"]["lambda"])))
+'''
+
+_STANDIN_RECOMMEND = '''"""Stand-in model/SpreadMethod/recommend.py: recommendSpreadMethod, its
+lists altered as SWAP_TIE and REPLACE_ITEM (set above) say."""
+from const import cfg
+from utils.log import logger
+from utils.wrapper import calTimes
+from model.SpreadMethod import model
+
+
+@calTimes(logger, "recommendSpreadMethod")
+def recommendSpreadMethod(n_users, n_items, train_df, val_df, method):
+    graph = model.graph_of(n_users, n_items, train_df, val_df)
+    rec = model.recommend(graph, method)
+    if SWAP_TIE or REPLACE_ITEM:
+        F = model.scores(graph, method)
+    if SWAP_TIE:  # the first two adjacent items of equal score trade places
+        tied = [(u, j) for u in range(n_users) for j in range(rec.shape[1] - 1)
+                if F[u, rec[u, j]] == F[u, rec[u, j + 1]]]
+        if tied:
+            u, j = tied[0]
+            rec[u, j], rec[u, j + 1] = rec[u, j + 1], rec[u, j]
+    if REPLACE_ITEM:  # user 0's last item gives way to one of another score
+        last = rec[0, -1]
+        rec[0, -1] = next(i for i in range(n_items)
+                          if i not in rec[0] and F[0, i] != F[0, last])
+    logger.info("recommendSpreadMethod %s for %d users", method, n_users)
+    return {u: rec[u].tolist() for u in range(n_users)}
+'''
+
+_STANDIN_TRANS = '''"""Stand-in utils/trans.py: the reference's dict and matrix converters."""
+import numpy as np
+
+from utils.log import logger
+from utils.wrapper import calTimes
+
+
+def getUserItemsDictByDataframe(df):
+    pos = {}
+    for u, i in zip(df["user_id"].tolist(), df["item_id"].tolist()):
+        pos.setdefault(int(u), []).append(int(i))
+    return pos
+
+
+def getItemDegreeByUserPosItemDict(train_pos, val_pos):
+    deg = {}
+    for pos in (train_pos, val_pos):
+        for items in pos.values():
+            for i in items:
+                deg[i] = deg.get(i, 0) + 1
+    return deg
+
+
+@calTimes(logger, "getInteractionMatrixByDataframe")
+def getInteractionMatrixByDataframe(n_users, n_items, df):
+    A = np.zeros((n_users, n_items))
+    A[df["user_id"].to_numpy(), df["item_id"].to_numpy()] = 1.0
+    return A
+
+
+def recommendDictToTensor(rec_dict):
+    return np.array([rec_dict[u] for u in range(len(rec_dict))])
+'''
+
+_STANDIN_ACCURATE = '''"""Stand-in metrics/accurate.py: P, R, F1, NDCG by lgcnhs_tpu's
+eval.metrics, P shifted by SHIFT (set above)."""
+import numpy as np
+
+from utils.log import logger
+from utils.wrapper import calTimes
+
+from lgcnhs_tpu.data.graph import EdgeSet
+from lgcnhs_tpu.eval.metrics import EvalContext, accurate_metrics
+
+
+@calTimes(logger, "getAccurateMetrics")
+def getAccurateMetrics(test_pos, rec, k):
+    rec = np.asarray(rec)[:, :k]
+    users = [u for u, items in test_pos.items() for _ in items]
+    items = [i for its in test_pos.values() for i in its]
+    n_items = 1 + max(int(rec.max()), max(items))
+    test = EdgeSet(np.asarray(users, np.int32), np.asarray(items, np.int32))
+    empty = EdgeSet(np.zeros(0, np.int32), np.zeros(0, np.int32))
+    ctx = EvalContext.build(rec.shape[0], n_items, test, empty, empty)
+    p, r, f1, n = accurate_metrics(ctx, rec)
+    return p + SHIFT, r, f1, n
+'''
+
+_STANDIN_DIVERSITY = '''"""Stand-in metrics/diversity.py: H and I by lgcnhs_tpu's eval.metrics on
+the interaction matrix and item degrees the caller passes."""
+import dataclasses
+
+import numpy as np
+
+from utils.log import logger
+from utils.wrapper import calTimes
+
+from lgcnhs_tpu.data.graph import EdgeSet
+from lgcnhs_tpu.eval.metrics import EvalContext, diversity_metrics
+
+
+@calTimes(logger, "getDiversityMetrics")
+def getDiversityMetrics(rec, item_deg, A, k):
+    rec = np.asarray(rec)[:, :k]
+    U, I = A.shape
+    users, items = np.nonzero(A)
+    seen = EdgeSet(users.astype(np.int32), items.astype(np.int32))
+    empty = EdgeSet(np.zeros(0, np.int32), np.zeros(0, np.int32))
+    ctx = EvalContext.build(U, I, empty, seen, empty)
+    deg = np.array([item_deg.get(i, 0) for i in range(I)], dtype=ctx.item_deg.dtype)
+    return diversity_metrics(dataclasses.replace(ctx, item_deg=deg), rec)
+'''
+
+
+def write_reference_standin(root, swap_tie=False, replace_item=False, shift=0.0):
+    """The five reference files ``ReferenceModules`` loads, under ``root``
+    (the ``model/SpreadMethod`` package as a namespace package). Faithful by
+    default; ``swap_tie`` swaps the first two adjacent tied items of a list,
+    ``replace_item`` puts an item of another score in user 0's last slot,
+    ``shift`` is added to P."""
+    import os
+
+    files = {
+        "model/SpreadMethod/model.py": _STANDIN_MODEL,
+        "model/SpreadMethod/recommend.py":
+            f"SWAP_TIE = {swap_tie!r}\nREPLACE_ITEM = {replace_item!r}\n" + _STANDIN_RECOMMEND,
+        "utils/trans.py": _STANDIN_TRANS,
+        "metrics/accurate.py": f"SHIFT = {shift!r}\n" + _STANDIN_ACCURATE,
+        "metrics/diversity.py": _STANDIN_DIVERSITY,
+    }
+    for rel, text in files.items():
+        path = os.path.join(str(root), rel)
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        with open(path, "w") as f:
+            f.write(text)
