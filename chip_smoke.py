@@ -215,6 +215,16 @@ neither JAX nor ``lgcnhs_tpu``. Phases:
    the profiler has lost card records (``tools/profile_probe.py`` probes
    that; PERF.md). Launch counts set to 0 before each run and read after:
    no hand kernel runs in (a).
+12. The port's bench (``bench_phase``, last; a 150 s budget, its time
+   printed): ``python3 bench_torch.py --out-dir DIR`` in a fresh process
+   (its profiler session is that process's first), with a timeout. Its
+   last line parses, its metric is ``lightgcn_train_examples_per_sec_ml1m``
+   with a value above 0, its ``kernel_contracts`` is "pass" (every kernel
+   held against its twin at its bench row's shapes), it has no
+   ``row_errors``, the headline's trace matched the ``dual_matmul``
+   launches, and each kernel was launched by the bench (its side file's
+   counts, set to 0 at its start). The line, each row's seconds and peak
+   memory, and the CPU baseline's seconds are printed.
 
 Prints one PASS/FAIL line per check, then (all passed) the kernel JSON line,
 the ``nvidia-smi`` name/power-limit line, and the final
@@ -339,6 +349,9 @@ RESUME_EPOCHS_10, RESUME_STOP_10, RESUME_EVERY_10 = 14, 8, 7
 # hybrid_gat_fusion at the JAX test's lambda
 AE_EPOCHS, AE_HIDDEN, AE_LAMBDA = 100, 64, 0.5
 AE_HISTORY_RTOL, AE_PARAM_TOL = 1e-4, 1e-3
+# phase 12, bench_torch.py in its own process: the budget (printed) and the
+# timeout that stops it
+BENCH_BUDGET_S, BENCH_TIMEOUT_S = 150, 450
 W2V_STORY_DOCS = 300  # the CPU side of the storyline check trains on these
 # Douban: 160,000 users at 6.5 ratings each, the ratio of the public dump
 # (~4.2 M ratings by ~640,000 users); the preset keeps the users whose rating
@@ -2219,6 +2232,56 @@ def cli_child():
     print(json.dumps({"runs": runs, "parity_report": report}))
 
 
+def bench_phase(check, smi):
+    """Phase 12: ``bench_torch.py`` in a fresh process (module docstring).
+    Returns its launches by kernel, its seconds and its record."""
+    import torch
+
+    os.makedirs(os.path.join(ROOT, "artifacts"), exist_ok=True)
+    out_dir = tempfile.mkdtemp(prefix="bench_torch_", dir=os.path.join(ROOT, "artifacts"))
+    try:
+        torch.cuda.empty_cache()  # the bench's rows hold up to ~5 GB
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, os.path.join(ROOT, "bench_torch.py"), "--out-dir", out_dir],
+            cwd=ROOT, capture_output=True, text=True, timeout=BENCH_TIMEOUT_S)
+        secs = time.perf_counter() - t0
+        lines = proc.stdout.strip().splitlines()
+        check("phase 12: bench_torch.py exits 0 and prints its line",
+              proc.returncode == 0 and bool(lines),
+              f"rc {proc.returncode}; {secs:.1f} s"
+              + (f"; {proc.stderr[-3000:]}" if proc.returncode else ""))
+        if not lines:
+            return None
+        print(f"[phase 12] {lines[-1]}", flush=True)
+        rec = json.loads(lines[-1])
+        extra = rec["extra"]
+        check("phase 12: the line's metric is lightgcn_train_examples_per_sec_ml1m, value > 0",
+              rec["metric"] == "lightgcn_train_examples_per_sec_ml1m" and rec["value"] > 0,
+              f"{rec['metric']} {rec['value']} {rec['unit']}")
+        check("phase 12: kernel_contracts pass", extra.get("kernel_contracts") == "pass",
+              f"{extra.get('kernel_contracts')}")
+        check("phase 12: no row_errors", "row_errors" not in extra,
+              f"{extra.get('row_errors')}")
+        check("phase 12: the headline's trace matched its dual_matmul launches",
+              extra.get("headline_launch_check") == "matched",
+              f"{extra.get('headline_launch_check')}")
+        with open(os.path.join(out_dir, "bench_torch_stats.json")) as f:
+            side = json.load(f)
+        launches = side["run"]["launches"]
+        for name, n in launches.items():
+            check(f"phase 12: the bench launched {name}", n > 0, f"{n} launches")
+        rows = {name: {"s": row["s"], "peak_gb": row.get("peak_gb")}
+                for name, row in side["rows"].items()}
+        print(f"[phase 12] rows {json.dumps(rows)}", flush=True)
+        print(f"[phase 12] stats {json.dumps(side['stats'])}", flush=True)
+        print(f"[phase 12] the CPU baseline's row: {rows['train_cpu_baseline']['s']:.1f} s "
+              f"of {secs:.1f} s [{smi}]", flush=True)
+        return {"launches": launches, "s": secs, "record": rec}
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+
+
 def experimental_phase(check, dev, smi, env):
     """Phase 11: the experimental autoencoders at ML-100K, ``cli/main
     --profile`` on phase 4's trained checkpoint and ``cli/parity_report``
@@ -3561,6 +3624,15 @@ def main() -> int:
         print(f"[phase 11] rows {json.dumps(phase11['rows'])}", flush=True)
         for row in report:
             row["phase11_launches"] = phase11["launches"][row["name"]]
+
+    # -- 12. bench_torch.py in a fresh process ----------------------------------
+    print(f"[phase 12] bench_torch.py on {smi}", flush=True)
+    phase12 = check.guard("phase 12", bench_phase, check, smi)
+    if phase12:
+        print(f"[phase 12] {phase12['s']:.1f} s (budget {BENCH_BUDGET_S} s); launches "
+              f"{phase12['launches']} [{smi}]", flush=True)
+        for row in report:  # the call sites inside ops/scalable and the mesh: none
+            row["phase12_launches"] = phase12["launches"].get(row["name"], 0)
 
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
     if check.failures:
