@@ -215,7 +215,7 @@ neither JAX nor ``lgcnhs_tpu``. Phases:
    the profiler has lost card records (``tools/profile_probe.py`` probes
    that; PERF.md). Launch counts set to 0 before each run and read after:
    no hand kernel runs in (a).
-12. The port's bench (``bench_phase``, last; a 150 s budget, its time
+12. The port's bench (``bench_phase``, after phase 11; a 150 s budget, its time
    printed): ``python3 bench_torch.py --out-dir DIR`` in a fresh process
    (its profiler session is that process's first), with a timeout. Its
    last line parses, its metric is ``lightgcn_train_examples_per_sec_ml1m``
@@ -225,6 +225,26 @@ neither JAX nor ``lgcnhs_tpu``. Phases:
    launches, and each kernel was launched by the bench (its side file's
    counts, set to 0 at its start). The line, each row's seconds and peak
    memory, and the CPU baseline's seconds are printed.
+13. The root entry points (``entry_launch_phase``, last; a 30 s budget, its
+   time printed): (a) ``lgcnhs_tpu_torch.entry.entry()`` at its default
+   device: its inputs on the card, its forward's (64, 10) int32 ids
+   identical to ``entry(device="cpu")``'s, no hand kernel launched (the
+   flagship forward ranks with library ops, as JAX's ``entry()``); (b)
+   README's launch, ``python -m torch.distributed.run --standalone
+   --nproc-per-node 1`` of ``cli/main --model LightGCNOpti --env dev`` at
+   the ML-1M stand-in on a seeded checkpoint in a fresh workdir, and the
+   same flags in a plain process in a second workdir. Each process runs the
+   module as ``python -m`` does, inside ``module_child`` (``--run-module``),
+   which reads its launch counts: one ``fused_topk_retrieval`` and nothing
+   else in each. Both exit 0, torchrun's rank found RANK 0, LOCAL_RANK 0,
+   WORLD_SIZE 1 and a rendezvous address (the plain process none), one
+   JSON line each and equal, the saved (U, k) lists identical and
+   tie-equivalent to the plain chain on the card; each process's host
+   seconds. What (b) covers: the launcher's environment on the card path.
+   What it does not: at world size 1 ``init_distributed`` starts no group
+   (``runtime/mesh.py:86``), so no NCCL rendezvous runs here, and one card
+   cannot host two NCCL ranks; two ranks started by torchrun and by a
+   ``tcp://`` address are held on gloo by ``tests/test_torch_multihost.py``.
 
 Prints one PASS/FAIL line per check, then (all passed) the kernel JSON line,
 the ``nvidia-smi`` name/power-limit line, and the final
@@ -352,6 +372,10 @@ AE_HISTORY_RTOL, AE_PARAM_TOL = 1e-4, 1e-3
 # phase 12, bench_torch.py in its own process: the budget (printed) and the
 # timeout that stops it
 BENCH_BUDGET_S, BENCH_TIMEOUT_S = 150, 450
+# phase 13: its budget (printed), and the variables a launcher such as
+# torchrun sets for each rank
+ENTRY_BUDGET_S = 30
+LAUNCHER_VARS = ("RANK", "LOCAL_RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")
 W2V_STORY_DOCS = 300  # the CPU side of the storyline check trains on these
 # Douban: 160,000 users at 6.5 ratings each, the ratio of the public dump
 # (~4.2 M ratings by ~640,000 users); the preset keeps the users whose rating
@@ -2282,6 +2306,171 @@ def bench_phase(check, smi):
         shutil.rmtree(out_dir, ignore_errors=True)
 
 
+def module_child():
+    """Phase 13 (b)'s process: ``python chip_smoke.py --run-module MODULE
+    ARGS...`` runs MODULE as ``python -m MODULE ARGS...`` does (``runpy``,
+    ``__main__``), with every launch count set to 0 just before and read
+    just after (``count_site_launches``), and prints one JSON line last: the
+    launches, the launcher's variables as the process found them and the
+    run's host seconds."""
+    import runpy
+
+    import torch
+
+    from lgcnhs_tpu_torch.ops.cuda import fusion_serve as fs
+    from lgcnhs_tpu_torch.ops.cuda import propagation as prop
+    from lgcnhs_tpu_torch.ops.cuda import retrieval as rt
+
+    module, args = sys.argv[2], sys.argv[3:]
+    launcher = {name: os.environ.get(name) for name in LAUNCHER_VARS}
+    kernels = {"fused_topk_retrieval": rt.fused_topk_retrieval,
+               "fused_lgcnhs_serve": fs.fused_lgcnhs_serve, "dual_matmul": prop.dual_matmul}
+    sys.argv = [module, *args]
+
+    def run():
+        try:
+            runpy.run_module(module, run_name="__main__", alter_sys=True)
+        except SystemExit as e:  # a module's own sys.exit(0) ends it normally
+            if e.code not in (None, 0):
+                raise
+        torch.cuda.synchronize()
+
+    t0 = time.perf_counter()
+    _, got = count_site_launches(kernels, run)
+    print(json.dumps({"launches": got, "launcher": launcher, "s": time.perf_counter() - t0}))
+
+
+def entry_launch_phase(check, dev, smi, kernels):
+    """Phase 13: ``lgcnhs_tpu_torch.entry.entry()`` on the card, and
+    README's torchrun launch of ``cli/main`` beside a plain one (module
+    docstring). Returns its launches by kernel and call site and its rows."""
+    import numpy as np
+    import torch
+
+    from lgcnhs_tpu_torch import config as tcfg
+    from lgcnhs_tpu_torch.data.datasets import load_dataset
+    from lgcnhs_tpu_torch.data.graph import build_graph, pos_bool_matrix
+    from lgcnhs_tpu_torch.entry import entry
+    from lgcnhs_tpu_torch.models.lightgcn import init_lightgcn_opti
+    from lgcnhs_tpu_torch.models.recommenders import checkpoint_path
+    from lgcnhs_tpu_torch.ops.topk import MASK_VALUE, masked_topk
+    from lgcnhs_tpu_torch.train.trainer import save_checkpoint
+
+    launches = dict.fromkeys([*kernels, CHUNKED, DISTRIBUTED], 0)
+    no_kernel = dict.fromkeys(launches, 0)
+    rows = []
+
+    def row(name, **values):
+        rows.append({"name": name, **values})
+        print(f"[phase 13] {name}: {json.dumps(values)} [{smi}]", flush=True)
+
+    # (a) entry() at its default device, against entry(device="cpu")
+    t0 = time.perf_counter()
+    fn, args = entry()
+    build_s = time.perf_counter() - t0
+    check("phase 13 (a): entry() takes the card by default",
+          all(t.device == dev for t in (*args[0], *args[1:])),
+          f"{[str(t.device) for t in (*args[0], *args[1:])]}")
+    fn(*args)  # first call: the library ops' lazy set-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ids, got = count_site_launches(kernels, lambda: fn(*args))
+    torch.cuda.synchronize()
+    forward_ms = (time.perf_counter() - t0) * 1e3
+    for name, n in got.items():
+        launches[name] += n
+    cpu_fn, cpu_args = entry(device="cpu")
+    want = cpu_fn(*cpu_args)
+    check("phase 13 (a): entry()'s forward on the card: (64, 10) int32 ids identical to "
+          "entry(device=\"cpu\")'s", ids.dtype == torch.int32 and tuple(ids.shape) == (64, 10)
+          and torch.equal(ids.cpu(), want), f"{int((ids.cpu() != want).sum())} mismatches")
+    check("phase 13 (a): entry()'s forward launched no hand kernel", got == no_kernel, f"{got}")
+    row("entry() forward", shape="64x128 D=16 k=10", build_s=build_s, forward_ms=forward_ms)
+
+    # (b) README's launch: torchrun at world size 1 against a plain process
+    work = tempfile.mkdtemp(prefix="chip_smoke_entry_", dir=os.path.join(ROOT, "artifacts"))
+    try:
+        dirs = {"torchrun": os.path.join(work, "torchrun"), "plain": os.path.join(work, "plain")}
+        cfgs = {how: tcfg.load_config(env="dev", dataset="movielens1m", model="LightGCNOpti",
+                                      workdir=d) for how, d in dirs.items()}
+        splits, uf, itf = load_dataset(cfgs["plain"])
+        graph = build_graph(splits)
+        params = init_lightgcn_opti(torch.Generator().manual_seed(SEED), uf, itf,
+                                    cfgs["plain"].hparams.embedding_dim)
+        for cfg in cfgs.values():
+            os.makedirs(cfg.model_path, exist_ok=True)
+            save_checkpoint(checkpoint_path(cfg), params)
+        run_module = [os.path.join(ROOT, "chip_smoke.py"), "--run-module",
+                      "lgcnhs_tpu_torch.cli.main", "--model", "LightGCNOpti", "--env", "dev",
+                      "--dataset", "movielens1m"]
+        commands = {
+            "torchrun": [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                         "--nproc-per-node", "1", *run_module, "--workdir", dirs["torchrun"]],
+            "plain": [sys.executable, *run_module, "--workdir", dirs["plain"]],
+        }
+        # neither process inherits a launcher's variables from this one
+        env = {name: v for name, v in os.environ.items() if name not in LAUNCHER_VARS}
+        runs = {}
+        for how, command in commands.items():
+            t0 = time.perf_counter()
+            proc = subprocess.run(command, cwd=ROOT, env=env, capture_output=True, text=True,
+                                  timeout=300)
+            secs = time.perf_counter() - t0
+            lines = proc.stdout.strip().splitlines()
+            if not check(f"phase 13 (b): cli/main LightGCNOpti --env dev movielens1m through "
+                         f"{how}: exit 0", proc.returncode == 0 and bool(lines),
+                         f"rc {proc.returncode}; {secs:.1f} s host"
+                         + (f"; {proc.stderr[-3000:]}" if proc.returncode else "")):
+                return None
+            record = json.loads(lines[-1])
+            metric_lines = [line for line in lines if line.startswith('{"model"')]
+            runs[how] = (record, metric_lines, secs)
+            for name, n in record["launches"].items():
+                launches[name] += n
+            row(f"cli/main LightGCNOpti movielens1m --env dev, {how}", process_s=secs,
+                main_s=record["s"], launches=record["launches"], launcher=record["launcher"])
+        env_t = runs["torchrun"][0]["launcher"]
+        check("phase 13 (b): torchrun set RANK 0, LOCAL_RANK 0, WORLD_SIZE 1 and a rendezvous "
+              "address; the plain process has none of them",
+              (env_t["RANK"], env_t["LOCAL_RANK"], env_t["WORLD_SIZE"]) == ("0", "0", "1")
+              and bool(env_t["MASTER_ADDR"]) and bool(env_t["MASTER_PORT"])
+              and not any(runs["plain"][0]["launcher"].values()), f"{env_t}")
+        one = {**no_kernel, "fused_topk_retrieval": 1}
+        check("phase 13 (b): each run launched fused_topk_retrieval once and nothing else",
+              all(rec["launches"] == one for rec, _, _ in runs.values()),
+              f"{[rec['launches'] for rec, _, _ in runs.values()]}")
+        (_, lines_t, _), (_, lines_p, _) = runs["torchrun"], runs["plain"]
+        line = json.loads(lines_p[0]) if lines_p else {}
+        check("phase 13 (b): one JSON line each, equal, LightGCNOpti at k=10, finite",
+              len(lines_t) == len(lines_p) == 1 and lines_t == lines_p
+              and line.get("model") == "LightGCNOpti" and line.get("k") == 10
+              and all(math.isfinite(v) for v in line.values() if isinstance(v, float)),
+              f"{lines_t} / {lines_p}")
+        k = cfgs["plain"].k
+        recs = {how: np.load(os.path.join(cfg.recommend_path,
+                                          f"all_user_recommend_LightGCNOpti_{k}.npy"))
+                for how, cfg in cfgs.items()}
+        check("phase 13 (b): the saved (U, k) lists identical",
+              recs["torchrun"].shape == (graph.n_users, k)
+              and np.array_equal(recs["torchrun"], recs["plain"]),
+              f"{recs['torchrun'].shape}, "
+              f"{int((recs['torchrun'] != recs['plain']).sum())} mismatches")
+        seen = torch.from_numpy(
+            pos_bool_matrix(graph.n_users, graph.n_items, graph.train, graph.val)).to(dev)
+        ue, ie = params.user_emb.to(dev), params.item_emb.to(dev)
+        ref = torch.where(seen, torch.full_like(seen, MASK_VALUE, dtype=torch.float64),
+                          ue.double() @ ie.double().T)
+        agreement, gap = tie_equivalence(torch, masked_topk(ue @ ie.T, seen, k),
+                                         torch.from_numpy(recs["torchrun"]).to(dev), ref)
+        check("phase 13 (b): the list tie-equivalent to the plain chain on the card",
+              agreement >= AGREEMENT_MIN and gap <= GAP_MAX,
+              f"agreement {agreement:.6f}, max relative gap {gap:.3e}")
+        del ref, seen
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return {"launches": launches, "rows": rows}
+
+
 def experimental_phase(check, dev, smi, env):
     """Phase 11: the experimental autoencoders at ML-100K, ``cli/main
     --profile`` on phase 4's trained checkpoint and ``cli/parity_report``
@@ -3634,6 +3823,16 @@ def main() -> int:
         for row in report:  # the call sites inside ops/scalable and the mesh: none
             row["phase12_launches"] = phase12["launches"].get(row["name"], 0)
 
+    # -- 13. entry() and README's torchrun launch ---------------------------------
+    print(f"[phase 13] entry() and the torchrun launch on {smi}", flush=True)
+    t0 = time.perf_counter()
+    phase13 = check.guard("phase 13", entry_launch_phase, check, dev, smi, main_kernels)
+    if phase13:
+        print(f"[phase 13] {time.perf_counter() - t0:.1f} s (budget {ENTRY_BUDGET_S} s); "
+              f"launches {phase13['launches']} [{smi}]", flush=True)
+        for row in report:
+            row["phase13_launches"] = phase13["launches"][row["name"]]
+
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
     if check.failures:
         print(f"chip_smoke: {len(check.failures)} FAILED: {check.failures}", flush=True)
@@ -3646,4 +3845,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--run-module"]:
+        module_child()
+        sys.exit(0)
     sys.exit(main())

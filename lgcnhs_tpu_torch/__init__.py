@@ -21,6 +21,8 @@ to find, and imports neither JAX nor ``lgcnhs_tpu``:
                    ``cli.retrieve`` (serving), ``cli.find_lambda`` (the
                    lambda sweep), ``cli.evaluate`` (the cross-model report)
                    and ``cli.ablation`` (its chart)
+- ``entry``     -- ``__graft_entry__``'s counterpart: the flagship forward
+                   step ``entry()`` and ``dryrun_multichip``
 
 Entry points run on ``cuda`` unless the CPU is asked for (``--device cpu``);
 with ``--mesh`` one process a device, started by ``torchrun``.
