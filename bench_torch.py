@@ -18,15 +18,20 @@ training step (full-graph LightGCN forward, BPR, Adam; one minibatch of
 D=64) on the route ``train/trainer.train_lightgcn`` dispatches there at the
 prod preset (``choose_propagation``, ``uses_kernels``): on the card the
 int8 binary incidence through the ``dual_matmul`` kernel (6 launches a
-step). Each repetition is one chunk of eager steps at advancing epochs
-(``make_train_step``, ``make_optimizer``, the lr set each step,
-``epoch_generator(seed, epoch)``), closed by one synchronize. The headline
-row runs first; one more chunk of ``CARD_STEPS`` steps is traced by
-``torch.profiler`` (the process's first session: later ones lose card
-records, ``tools/profile_probe.py``), its ``dual_kernel`` events counted
+step). Each repetition is one chunk of ``CARD_STEPS`` epochs at advancing
+epochs through ``make_train_scan`` (the capturable ``make_optimizer``,
+``epoch_generator(seed, epoch)``): on the card one replay of the chunk's
+captured CUDA graph (captured in the warm-up chunk), as ``bench.py:259``
+times one ``lax.scan``; closed by one synchronize. The headline row runs
+first; right after its warm-up one chunk is traced by ``torch.profiler``
+(the process's first session: later ones lose card records once a minute
+has passed, ``tools/profile_probe.py``), its ``dual_kernel`` events counted
 against the wrapper's launch counter, which gives the device-busy ms a step
 and the idle share of the untraced step, or "not measured" when the counts
-disagree.
+disagree. On the card the eager route runs next, one ``make_train_step``
+call an epoch under the default Adam (the lr set each step), timed and
+traced the same way, for comparison (``train_int8_binary_eager_eps``,
+``headline_eager_device_busy_ms``).
 
 ``vs_baseline`` is the headline rate over the f32 twin route's (dense f32
 normalized incidence, no kernel) on this host's CPU, ``CPU_STEPS`` steps a
@@ -391,10 +396,29 @@ def _chunks(step, params, graph_op, edge_users, edge_items, rejection, chunk, de
     return run
 
 
+def _scan_chunks(scan, params, step_rest, chunk):
+    """``run()``: the next ``chunk`` epochs as one call of ``scan`` (one
+    replay of its graph on the card) at advancing epochs, returning the last
+    loss: ``bench.py``'s one ``lax.scan`` a timed region. The first call
+    runs ``chunk + 1`` epochs: the scan's first epoch runs eagerly and a
+    graph of ``chunk`` epochs is captured, which every later call replays."""
+    state = {"epoch": 0}
+
+    def run():
+        e0 = state["epoch"]
+        n = chunk + (e0 == 0)
+        state["epoch"] = e0 + n
+        return scan(params, TRAIN_SEED, e0, n, *step_rest)
+
+    return run
+
+
 def bench_train(device, hp, graph, n_steps: int, variant: str, stats_name: str = None,
-                trace: dict = None) -> float:
-    """examples/s of the port trainer's step on ``device``, chunks of
-    ``n_steps`` steps (one warm-up chunk, then 5 timed).
+                trace: dict = None, eager: bool = False) -> float:
+    """examples/s of the port trainer's ``n_steps``-epoch chunks on
+    ``device`` through ``make_train_scan`` (one warm-up chunk, which
+    captures the graph on the card, then 5 timed), or with ``eager`` one
+    ``make_train_step`` call an epoch under the default Adam.
 
     variant: "f32" (dense f32 normalized incidence, no kernel: the CPU
     baseline, bench.py's "xla_f32"), "bf16" (dense bf16 incidence, through
@@ -407,7 +431,7 @@ def bench_train(device, hp, graph, n_steps: int, variant: str, stats_name: str =
     from lgcnhs_tpu_torch.data.graph import normalized_bipartite, pos_bool_matrix, unique_edges
     from lgcnhs_tpu_torch.ops.cuda.propagation import pad_for_dual
     from lgcnhs_tpu_torch.train.trainer import (
-        device_binary_factors, make_optimizer, make_train_step,
+        device_binary_factors, make_optimizer, make_train_scan, make_train_step,
     )
 
     device = torch.device(device)
@@ -427,14 +451,34 @@ def bench_train(device, hp, graph, n_steps: int, variant: str, stats_name: str =
     edge_items = _on(device, train_es.items.astype(np.int64))
     pos = _on(device, pos_bool_matrix(U, I, graph.train))
     params = _params(0, U, I, device, train=True)
-    step = make_train_step(make_optimizer(hp, params), hp, I, bf16_matmul=variant != "f32",
-                           use_kernel=kernel)
     chunk = max(1, n_steps)
-    run = _chunks(step, params, graph_op, edge_users, edge_items, pos, chunk, device)
-    _sync(run())  # warm-up chunk: kernel libraries, the split-K workspace, the allocator
-    stats = record_stats(stats_name or f"train_{variant}", timed_stats(run, 5, inner=1))
-    if trace is not None and device.type == "cuda":
-        trace.update(trace_train(run, chunk, device, stats["median_s"] * 1e3 / chunk))
+    kw = {"bf16_matmul": variant != "f32", "use_kernel": kernel}
+    if eager:
+        step = make_train_step(make_optimizer(hp, params), hp, I, **kw)
+        run = _chunks(step, params, graph_op, edge_users, edge_items, pos, chunk, device)
+    else:
+        opt = make_optimizer(hp, params, capturable=device.type == "cuda")
+        scan = make_train_scan(opt, hp, I, **kw)
+        run = _scan_chunks(scan, params, (graph_op, edge_users, edge_items, pos), chunk)
+    # warm-up chunk: the graph's capture, kernel libraries, the split-K
+    # workspace, the allocator
+    _sync(run())
+    # traced before the timed chunks, as early in the process as the row allows
+    traced = (trace_train(run, chunk, device) if trace is not None and device.type == "cuda"
+              else None)
+    name = stats_name or f"train_{variant}"
+    stats = record_stats(name, timed_stats(run, 5, inner=1))
+    if traced is not None:
+        step_ms = stats["median_s"] * 1e3 / chunk
+        busy = traced["device_busy_ms"]
+        traced.update(step_ms=step_ms, idle_share="not measured" if isinstance(busy, str)
+                      else 1.0 - busy / step_ms)
+        log(f"{name} trace: {json.dumps(traced)}")
+        trace.update(traced)
+    if not eager:
+        if scan.captures:
+            log(f"{name}: graph captures (epochs, s) {scan.captures}")
+        scan.release()
     if kernel:
         with torch.no_grad():
             if variant == "binary":
@@ -444,18 +488,19 @@ def bench_train(device, hp, graph, n_steps: int, variant: str, stats_name: str =
             else:
                 R = graph_op
                 X, Y = params.item_emb.to(torch.bfloat16), params.user_emb.to(torch.bfloat16)
-        hold_dual(stats_name or f"train_{variant}", R, X, Y)
+        hold_dual(name, R, X, Y)
     return hp.batch_size * chunk / stats["median_s"]
 
 
-def trace_train(run, n_steps: int, device, step_ms: float) -> dict:
+def trace_train(run, n_steps: int, device) -> dict:
     """One chunk of ``n_steps`` steps under ``torch.profiler``: the trace's
     ``dual_kernel`` events against the ``dual_matmul`` wrapper's launches in
     the window (6 a step on the kernel route), and, where they match, the
-    device-busy ms a step (every card event's self time) and the idle share
-    of the untraced step (``step_ms``, the timed chunks' median): the
-    profiler slows the host, so the traced window's own wall time (kept
-    beside it, with the seconds ``key_averages`` took) overstates it."""
+    device-busy ms a step (every card event's self time), else "not
+    measured". The profiler slows the host, so the traced window's own wall
+    time (kept beside it, with the seconds ``key_averages`` took) overstates
+    the untraced step's; ``bench_train`` adds that step (the timed chunks'
+    median) and the idle share."""
     from torch.profiler import ProfilerActivity, profile
 
     from lgcnhs_tpu_torch.ops.cuda.propagation import dual_matmul
@@ -481,17 +526,12 @@ def trace_train(run, n_steps: int, device, step_ms: float) -> dict:
         if "dual_kernel" in ev.key:
             events += ev.count
     matched = events == launches == 6 * n_steps
-    out = {"steps": n_steps, "step_ms": step_ms, "traced_wall_ms": wall_ms,
+    out = {"steps": n_steps, "traced_wall_ms": wall_ms,
            "analysis_s": analysis_s, "dual_kernel_events": events,
            "dual_matmul_launches": launches,
            "launch_check": "matched" if matched else
            f"trace {events} dual_kernel events, {launches} launches, {6 * n_steps} expected"}
-    if matched:
-        busy_ms = busy_us / 1e3 / n_steps
-        out.update(device_busy_ms=busy_ms, idle_share=1.0 - busy_ms / step_ms)
-    else:
-        out.update(device_busy_ms="not measured", idle_share="not measured")
-    log(f"headline trace: {json.dumps(out)}")
+    out["device_busy_ms"] = busy_us / 1e3 / n_steps if matched else "not measured"
     return out
 
 
@@ -504,14 +544,14 @@ def _large_edges():
 
 
 def bench_train_coo(device, hp, n_steps: int, chunk: int = 50) -> float:
-    """examples/s of the COO (bucketed-ELL) step at a catalog too large to
-    densify in f32 (50k x 30k: a 6 GB f32 incidence): ``make_coo_train_step``
+    """examples/s of the COO (bucketed-ELL) route at a catalog too large to
+    densify in f32 (50k x 30k: a 6 GB f32 incidence): ``make_coo_train_scan``
     over ``build_bucketed_incidence``, no (U, I) array anywhere, chunks of
-    ``chunk`` steps."""
+    ``chunk`` epochs."""
     from lgcnhs_tpu_torch.data.graph import EdgeSet
     from lgcnhs_tpu_torch.ops.propagation import build_bucketed_incidence, edge_gcn_norm
     from lgcnhs_tpu_torch.ops.scalable import csr_keys, user_csr
-    from lgcnhs_tpu_torch.train.trainer import make_coo_train_step, make_optimizer
+    from lgcnhs_tpu_torch.train.trainer import make_coo_train_scan, make_optimizer
 
     device = torch.device(device)
     U, I = LARGE_USERS, LARGE_ITEMS
@@ -521,12 +561,14 @@ def bench_train_coo(device, hp, n_steps: int, chunk: int = 50) -> float:
     binc = build_bucketed_incidence(eu, ei, edge_norm.cpu().numpy(), U, I, device=device)
     keys = csr_keys(*user_csr(U, EdgeSet(eu, ei)), device)
     params = _params(0, U, I, device, train=True)
-    step = make_coo_train_step(make_optimizer(hp, params), hp, I)
+    scan = make_coo_train_scan(make_optimizer(hp, params, capturable=device.type == "cuda"),
+                               hp, I)
     chunk = min(chunk, n_steps)
-    run = _chunks(step, params, binc, edge_users, edge_items, keys, chunk, device)
+    run = _scan_chunks(scan, params, (binc, edge_users, edge_items, keys), chunk)
     _sync(run())
     stats = record_stats("train_coo_50kx30k",
                          timed_stats(run, max(5, n_steps // chunk), inner=1))
+    scan.release()
     return hp.batch_size * chunk / stats["median_s"]
 
 
@@ -534,11 +576,11 @@ def bench_train_dense_rung(device, hp, n_steps: int = 60, chunk: int = 20) -> fl
     """examples/s of the bf16-dense rung at the COO row's 50k x 30k / 2M
     edges: the f32 incidence (6 GB) is over the host build budget, the bf16
     one (3 GB) is built on the card (``data/graph.device_bf16_incidence``,
-    no (U, I) host array), and the step samples through CSR keys
-    (``make_train_step(bf16, use_kernel=False, csr_sampler=True)``)."""
+    no (U, I) host array), and the scan samples through CSR keys
+    (``make_train_scan(bf16, use_kernel=False, csr_sampler=True)``)."""
     from lgcnhs_tpu_torch.data.graph import EdgeSet, device_bf16_incidence
     from lgcnhs_tpu_torch.ops.scalable import csr_keys, user_csr
-    from lgcnhs_tpu_torch.train.trainer import make_optimizer, make_train_step
+    from lgcnhs_tpu_torch.train.trainer import make_optimizer, make_train_scan
 
     device = torch.device(device)
     U, I = LARGE_USERS, LARGE_ITEMS
@@ -548,12 +590,13 @@ def bench_train_dense_rung(device, hp, n_steps: int = 60, chunk: int = 20) -> fl
     keys = csr_keys(*user_csr(U, es), device)
     edge_users, edge_items = _on(device, eu.astype(np.int64)), _on(device, ei.astype(np.int64))
     params = _params(0, U, I, device, train=True)
-    step = make_train_step(make_optimizer(hp, params), hp, I, bf16_matmul=True,
-                           use_kernel=False, csr_sampler=True)
+    scan = make_train_scan(make_optimizer(hp, params, capturable=device.type == "cuda"), hp, I,
+                           bf16_matmul=True, use_kernel=False, csr_sampler=True)
     chunk = min(chunk, n_steps)
-    run = _chunks(step, params, R16, edge_users, edge_items, keys, chunk, device)
+    run = _scan_chunks(scan, params, (R16, edge_users, edge_items, keys), chunk)
     _sync(run())
     stats = record_stats("train_densebf16_50kx30k", timed_stats(run, 5, inner=1))
+    scan.release()
     return hp.batch_size * chunk / stats["median_s"]
 
 
@@ -915,6 +958,17 @@ def _bench(args) -> int:
         extra["headline_device_busy_ms"] = trace["device_busy_ms"]
         extra["headline_idle_share"] = trace["idle_share"]
         extra["headline_launch_check"] = trace["launch_check"]
+    if on_card:  # the eager route beside the graph, traced within the minute
+        eager_trace = {}
+        eager_rate = _run_row(extra, f"train_{head}_eager", lambda: bench_train(
+            device, hp, graph, steps, head, stats_name=f"train_{head}_eager",
+            trace=eager_trace, eager=True))
+        if eager_rate is not None:
+            log(f"train {head} eager steps: {eager_rate:,.0f} examples/s")
+            extra[keys[head].replace("_eps", "_eager_eps")] = round(eager_rate, 1)
+        if eager_trace:
+            RUN["headline_eager_trace"] = eager_trace
+            extra["headline_eager_device_busy_ms"] = eager_trace["device_busy_ms"]
     if on_card and head == "binary":
         rate_bf16 = _run_row(extra, "train_bf16",
                              lambda: bench_train(device, hp, graph, steps, "bf16"))

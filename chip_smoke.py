@@ -95,7 +95,10 @@ neither JAX nor ``lgcnhs_tpu``. Phases:
    route over 20 epochs, within the JAX rung test's tolerance; the ML-1M
    stand-in forced into COO beside its dense f32 route, one seed. Launch
    counts set to 0 before each run and read after; each run's seconds, ms
-   a step, CSR-evaluation retrieval and I@k seconds and peak memory. Then
+   a step over a chunk that replays a graph captured earlier in the run
+   ((a)'s second interval; (b) and (c) at ``compute.scan_chunk`` half their
+   epochs), its graph captures, CSR-evaluation retrieval and I@k seconds
+   and peak memory. Then
    ``dual_matmul``'s gap to the exact (f64) sums against the sum length
    (``dual_accumulation_check``): a dense int8 R of ones, bf16-exact X and
    Y of mixed and of positive signs, sums of 3,706 to 100,000 products in
@@ -225,7 +228,7 @@ neither JAX nor ``lgcnhs_tpu``. Phases:
    launches, and each kernel was launched by the bench (its side file's
    counts, set to 0 at its start). The line, each row's seconds and peak
    memory, and the CPU baseline's seconds are printed.
-13. The root entry points (``entry_launch_phase``, last; a 30 s budget, its
+13. The root entry points (``entry_launch_phase``, after phase 12; a 30 s budget, its
    time printed): (a) ``lgcnhs_tpu_torch.entry.entry()`` at its default
    device: its inputs on the card, its forward's (64, 10) int32 ids
    identical to ``entry(device="cpu")``'s, no hand kernel launched (the
@@ -245,6 +248,28 @@ neither JAX nor ``lgcnhs_tpu``. Phases:
    (``runtime/mesh.py:86``), so no NCCL rendezvous runs here, and one card
    cannot host two NCCL ranks; two ranks started by torchrun and by a
    ``tcp://`` address are held on gloo by ``tests/test_torch_multihost.py``.
+14. The trainer's CUDA graphs (``graph_phase``, last; a 40 s budget, its
+   time printed). Since this slice every ``train_lightgcn`` above runs the
+   epochs between its boundaries through ``train/trainer.TrainScan``
+   (captured graphs, replayed), and their checks stand unchanged. Here:
+   (a) a scan of 4 epochs at ML-1M on the kernel route (epoch 0 eager on
+   the capture stream, 1-3 in a graph) draws the eager sampler's triples
+   bitwise (a recording sampler's clones, which the replay writes); under
+   the deterministic algorithms (the table gathers' backward otherwise sums
+   by atomics in no fixed order), ``train_lightgcn`` over ``TWIN_EPOCHS``
+   through graphs against the eager route (``trainer.CUDA_GRAPHS`` off: one
+   step an epoch, the default Adam): losses equal at 5 decimals, tables
+   within ``GRAPH_TABLE_REL_TOL`` of scale; (b) ``compute.scan_chunk`` 1 and
+   7 give tables and history identical to 0; (c) the COO route on the
+   bench's uniform 50,000 x 30,000 graph, ``GRAPH_COO_EPOCHS`` epochs: the
+   graph bitwise equal to eager steps under the same capturable Adam, and
+   within ``GRAPH_TABLE_REL_TOL`` of scale of the eager route; (d)
+   ``dual_matmul`` launches 6 an epoch on every route of (a) and (b),
+   counted at each replay; (e) ms a step of a graph of
+   ``GRAPH_TIMING_EPOCHS`` epochs replayed and of as many eager steps, in
+   turns, each route's peak memory and the capture's seconds, beside
+   phase 12's device-busy ms a step of both routes (the bench traces each
+   in its own process's first minute of profiling).
 
 Prints one PASS/FAIL line per check, then (all passed) the kernel JSON line,
 the ``nvidia-smi`` name/power-limit line, and the final
@@ -382,6 +407,17 @@ W2V_STORY_DOCS = 300  # the CPU side of the storyline check trains on these
 # counts lie between the counts' 0.99 and 0.991 quantiles, a few hundred here.
 # Storylines of 80 words over 2000 movies and the nicknames give word2vec
 # ~7000 steps.
+# phase 14, the trainer's CUDA graphs: its budget (printed); the graph route
+# against the eager route (one step an epoch, the default Adam) over
+# TWIN_EPOCHS at ML-1M and GRAPH_COO_EPOCHS on the COO route at the bench's
+# 50k x 30k graph. The routes differ only in Adam's bias corrections
+# (rounded in f32 on the card by the capturable Adam, in double on the host
+# by the default one), so their tables stay within GRAPH_TABLE_REL_TOL of
+# scale; the timing row over GRAPH_TIMING_EPOCHS epochs a chunk
+GRAPH_BUDGET_S = 40
+GRAPH_TABLE_REL_TOL = 1e-5
+GRAPH_COO_EPOCHS = 5
+GRAPH_TIMING_EPOCHS = 200
 DOUBAN_SIZE = {"n_users": 160_000, "n_movies": 2_000, "n_ratings": 1_040_000,
                "story_words": 80}
 
@@ -514,36 +550,57 @@ class StepClock(logging.Handler):
 
 class TrainProbe:
     """Times a ``train_lightgcn`` run from the inside while it is active:
-    the train step over the steady window of epochs ``first``..``last``
-    (no eval inside it; the card synchronized at its two ends), and each
-    CSR eval's chunked retrieval and I@k (host seconds, the card
-    synchronized around each call). It wraps the trainer module's names
-    and restores them on exit."""
+    the epochs ``first``..``last`` (no eval inside them; the card
+    synchronized at their two ends), run by eager steps or by calls of the
+    trainer's scan that start at ``first`` and end at ``last`` (a chunk
+    that replays a graph captured earlier in the run, for a steady time),
+    the scan's captures (epochs, seconds), and each CSR eval's chunked
+    retrieval and I@k (host seconds, the card synchronized around each
+    call). It wraps the trainer module's names and restores them on exit."""
 
-    NAMES = ("make_train_step", "make_coo_train_step", "chunked_masked_topk",
-             "internal_similarity_csr")
+    NAMES = ("make_train_step", "make_coo_train_step", "make_train_scan",
+             "make_coo_train_scan", "chunked_masked_topk", "internal_similarity_csr")
 
     def __init__(self, torch, trainer, first, last):
         self.torch, self.trainer = torch, trainer
         self.first, self.last = first, last
         self.step_ms = None
+        self.captures = []
         self.topk_s, self.iak_s = [], []
 
-    def _factory(self, factory):
+    def _window(self, run, e0, e1):
+        """run() over epochs e0..e1, timed when the window starts or ends
+        there."""
+        if e0 == self.first:
+            self.torch.cuda.synchronize()
+            self.t0 = time.perf_counter()
+        loss = run()
+        if e1 == self.last:
+            self.torch.cuda.synchronize()
+            self.step_ms = ((time.perf_counter() - self.t0) * 1e3
+                            / (self.last - self.first + 1))
+        return loss
+
+    def _step_factory(self, factory):
         def make(*a, **kw):
             step = factory(*a, **kw)
 
             def timed(params, epoch, *rest):
-                if epoch == self.first:
-                    self.torch.cuda.synchronize()
-                    self.t0 = time.perf_counter()
-                loss = step(params, epoch, *rest)
-                if epoch == self.last:
-                    self.torch.cuda.synchronize()
-                    self.step_ms = ((time.perf_counter() - self.t0) * 1e3
-                                    / (self.last - self.first + 1))
-                return loss
+                return self._window(lambda: step(params, epoch, *rest), epoch, epoch)
 
+            return timed
+
+        return make
+
+    def _scan_factory(self, factory):
+        def make(*a, **kw):
+            scan = factory(*a, **kw)
+            self.captures = scan.captures
+
+            def timed(params, seed, e0, n, *rest):
+                return self._window(lambda: scan(params, seed, e0, n, *rest), e0, e0 + n - 1)
+
+            timed.captures, timed.release = scan.captures, scan.release
             return timed
 
         return make
@@ -562,8 +619,10 @@ class TrainProbe:
     def __enter__(self):
         self.saved = {name: getattr(self.trainer, name) for name in self.NAMES}
         t = self.trainer
-        t.make_train_step = self._factory(self.saved["make_train_step"])
-        t.make_coo_train_step = self._factory(self.saved["make_coo_train_step"])
+        for name in ("make_train_step", "make_coo_train_step"):
+            setattr(t, name, self._step_factory(self.saved[name]))
+        for name in ("make_train_scan", "make_coo_train_scan"):
+            setattr(t, name, self._scan_factory(self.saved[name]))
         t.chunked_masked_topk = self._call(self.saved["chunked_masked_topk"], self.topk_s)
         t.internal_similarity_csr = self._call(self.saved["internal_similarity_csr"],
                                                self.iak_s)
@@ -635,12 +694,13 @@ def large_graph_phase(check, dev, smi, clock):
         counted = {name: fn.launches for name, fn in kernels.items()}
         row = {"run": label, "route": want["route"], "seconds": secs, "step_ms": probe.step_ms,
                "examples_per_s": cfg.hparams.batch_size / probe.step_ms * 1e3,
-               "csr_eval_topk_s": probe.topk_s, "iak_s": probe.iak_s,
+               "captures": probe.captures, "csr_eval_topk_s": probe.topk_s, "iak_s": probe.iak_s,
                "peak_device_gb": torch.cuda.max_memory_allocated() / 1e9, "launches": counted}
         out["runs"].append(row)
         hist = result.history
         print(f"[phase 6] {label}, {want['route']}: {secs:.2f} s, {probe.step_ms:.4f} ms/step "
-              f"({row['examples_per_s']:.1f} examples/s), CSR eval retrieval s {probe.topk_s}, "
+              f"over epochs {first}-{last} ({row['examples_per_s']:.1f} examples/s), graph "
+              f"captures (epochs, s) {probe.captures}, CSR eval retrieval s {probe.topk_s}, "
               f"I@k s {probe.iak_s}, peak device {row['peak_device_gb']:.2f} GB, launches "
               f"{counted}; history {json.dumps(hist)} [{smi}]", flush=True)
         wanted = {name: want.get(name, 0) for name in kernels}
@@ -659,7 +719,8 @@ def large_graph_phase(check, dev, smi, clock):
           trainer.choose_propagation(U, I, E, cfg_a.compute) == "dense"
           and trainer.choose_propagation(U, I, E, cfg_for(**{"compute.dtype": "float32"}).compute)
           == "coo" and 4.0 * U * I > trainer.DENSIFY_BUDGET_BYTES)
-    res_a = run("(a)", cfg_a, g, (uf, itf), 1, LARGE_EVAL_EVERY - 1,
+    # the steady window: the second interval, which replays the first's graph
+    res_a = run("(a)", cfg_a, g, (uf, itf), LARGE_EVAL_EVERY + 1, LARGE_EPOCHS - 1,
                 {"route": "kernel route + CSR eval", "iters": evals_a,
                  "dual_matmul": 6 * LARGE_EPOCHS,
                  "fused_topk_retrieval": len(evals_a) * n_chunks}, save=True)
@@ -780,20 +841,25 @@ def large_graph_phase(check, dev, smi, clock):
     del R8, R8p, X, Y, got, want_, res_a, rec
     torch.cuda.empty_cache()
 
-    # (b) compute.dtype=float32: the COO route (bucketed ELL), CSR eval
-    run("(b)", cfg_for(**{"compute.dtype": "float32", "hparams.epochs": COO_EPOCHS}), g,
-        (uf, itf), 1, COO_EPOCHS - 1,
+    # (b) compute.dtype=float32: the COO route (bucketed ELL), CSR eval; in
+    # (b) and (c) chunks of half the run, so that the second replays the
+    # first's graph (epoch 1 eager, then a graph of the rest), for the window
+    half = {"compute.scan_chunk": COO_EPOCHS // 2}
+    run("(b)", cfg_for(**{"compute.dtype": "float32", "hparams.epochs": COO_EPOCHS}, **half), g,
+        (uf, itf), COO_EPOCHS // 2 + 1, COO_EPOCHS - 1,
         {"route": "COO bucketed + CSR eval", "iters": [0], "fused_topk_retrieval": n_chunks})
     torch.cuda.empty_cache()
 
     # (c) the bf16-dense rung (use_pallas=false) beside the kernel route, the
     # same seed and triple stream: only the incidence rounding differs
-    short = {"hparams.epochs": SHORT_EPOCHS}
-    kern = run("(c) beside the rung", cfg_for(**short), g, (uf, itf), 1, SHORT_EPOCHS - 1,
+    short = {"hparams.epochs": SHORT_EPOCHS, "compute.scan_chunk": SHORT_EPOCHS // 2}
+    kern = run("(c) beside the rung", cfg_for(**short), g, (uf, itf), SHORT_EPOCHS // 2 + 1,
+               SHORT_EPOCHS - 1,
                {"route": "kernel route + CSR eval", "iters": [0],
                 "dual_matmul": 6 * SHORT_EPOCHS, "fused_topk_retrieval": n_chunks})
-    rung = run("(c) rung", cfg_for(**short, **{"compute.use_pallas": False}), g, (uf, itf), 1,
-               SHORT_EPOCHS - 1, {"route": "bf16-dense rung + CSR eval", "iters": [0],
+    rung = run("(c) rung", cfg_for(**short, **{"compute.use_pallas": False}), g, (uf, itf),
+               SHORT_EPOCHS // 2 + 1, SHORT_EPOCHS - 1,
+               {"route": "bf16-dense rung + CSR eval", "iters": [0],
                                   "fused_topk_retrieval": n_chunks})
     worst = max(((a - b).abs() - RUNG_ATOL - RUNG_RTOL * b.abs()).max().item()
                 for a, b in zip(rung.params, kern.params))
@@ -2304,6 +2370,250 @@ def bench_phase(check, smi):
         return {"launches": launches, "s": secs, "record": rec}
     finally:
         shutil.rmtree(out_dir, ignore_errors=True)
+
+
+def graph_phase(check, dev, smi, env):
+    """Phase 14: the trainer's multi-epoch intervals as CUDA graphs
+    (``train/trainer.TrainScan``; module docstring). Returns its launches
+    by kernel and its row."""
+    import numpy as np
+    import torch
+
+    from lgcnhs_tpu_torch import config as tcfg
+    from lgcnhs_tpu_torch.data.graph import EdgeSet, pos_bool_matrix, unique_edges
+    from lgcnhs_tpu_torch.models.lightgcn import LightGCNParams, init_lightgcn, init_lightgcn_opti
+    from lgcnhs_tpu_torch.ops.cuda import propagation as prop
+    from lgcnhs_tpu_torch.ops.propagation import build_bucketed_incidence, edge_gcn_norm
+    from lgcnhs_tpu_torch.ops.scalable import csr_keys, user_csr
+    from lgcnhs_tpu_torch.train import trainer
+
+    graph, (feats_u, feats_i) = env["graph"], env["feats"]
+    dual = prop.dual_matmul
+    U, I, D = graph.n_users, graph.n_items, 64
+    over = {"hparams.epochs": TWIN_EPOCHS, "hparams.epoch_per_eval": 10}
+    hp = tcfg.load_config(env="prod", dataset="movielens1m", model="LightGCNOpti",
+                          overrides=over).hparams
+    row = {"card": smi}
+
+    def opti_tables():
+        p = init_lightgcn_opti(torch.Generator().manual_seed(SEED), feats_u, feats_i, D, dev)
+        return LightGCNParams(*(t.clone().requires_grad_(True) for t in p))
+
+    def gap_of(a, b):
+        """(max |a - b| over both tables, the tables' scale)."""
+        return (max((x - y).abs().max().item() for x, y in zip(a, b)),
+                max(t.abs().max().item() for t in b))
+
+    te = unique_edges(graph.train)
+    eu = torch.from_numpy(te.users.astype(np.int64)).to(dev)
+    ei = torch.from_numpy(te.items.astype(np.int64)).to(dev)
+    pos = torch.from_numpy(pos_bool_matrix(U, I, graph.train)).to(dev)
+    R8, du, di = trainer.device_binary_factors(U, I, graph.train, dev)
+    rest = ((prop.pad_for_dual(R8), du, di), eu, ei, pos)
+    del R8
+
+    # (a) the triples a graph draws: a scan of 4 epochs (the first eager on
+    # the capture stream, then a graph of 3), each sample recorded by a
+    # clone (inside the graph, a clone the replay writes)
+    drawn, plain = [], trainer.sample_bpr_batch
+
+    def recording(generator, *args):
+        out = plain(generator, *args)
+        drawn.append([t.clone() for t in out])
+        return out
+
+    trainer.sample_bpr_batch = recording
+    try:
+        p = opti_tables()
+        scan = trainer.make_train_scan(trainer.make_optimizer(hp, p, capturable=True), hp, I,
+                                       bf16_matmul=True, use_kernel=True)
+        scan(p, hp.seed, 0, 4, *rest)
+        torch.cuda.synchronize()
+    finally:
+        trainer.sample_bpr_batch = plain
+    want = [plain(trainer.epoch_generator(hp.seed, e, dev), eu, ei, pos, hp.batch_size, I)
+            for e in range(4)]
+    same = [all(torch.equal(a, b) for a, b in zip(got, w)) for got, w in zip(drawn, want)]
+    check("phase 14 (a): the triples of epochs 0-3 (0 eager on the capture stream, 1-3 in "
+          "a graph) bitwise equal to the eager sampler's",
+          len(drawn) == 4 and all(same) and scan.captures[0][0] == 3,
+          f"{len(drawn)} draws, equal {same}, captures {scan.captures}")
+    scan.release()
+    del p, scan, drawn, want
+
+    def train(graphs, **extra):
+        """train_lightgcn at ML-1M on the kernel route, TWIN_EPOCHS epochs,
+        launches counted from 0; (result, launches, seconds, peak GB)."""
+        cfg = tcfg.load_config(env="prod", dataset="movielens1m", model="LightGCNOpti",
+                               overrides={**over, **extra})
+        trainer.CUDA_GRAPHS = graphs
+        dual.launches = 0
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        try:
+            res = trainer.train_lightgcn(graph, cfg, feats_u, feats_i, save_artifacts=False,
+                                         device=dev)
+            torch.cuda.synchronize()
+        finally:
+            trainer.CUDA_GRAPHS = True
+        return (res, dual.launches, time.perf_counter() - t0,
+                (torch.cuda.max_memory_allocated() - base) / 1e9)
+
+    # atomics in the table gathers' backward sum in no fixed order on the
+    # card; the deterministic algorithms take them out, so that the runs
+    # below differ by the route alone
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        runs = {sc: train(True, **{"compute.scan_chunk": sc}) for sc in (0, 1, 7)}
+        eager = train(False)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    g0 = runs[0][0]
+    hg, he = g0.history, eager[0].history
+    gap, scale = gap_of(g0.params, eager[0].params)
+    print(f"[phase 14] ML-1M kernel route, {TWIN_EPOCHS} epochs: graph {runs[0][2]:.2f} s, "
+          f"eager {eager[2]:.2f} s; losses {hg['train_loss']} / {he['train_loss']}, val "
+          f"{hg['val_loss']} / {he['val_loss']}; max table gap {gap:.3e} (scale {scale:.3e})",
+          flush=True)
+    check(f"phase 14 (a): graph route losses equal the eager route's at 5 decimals over "
+          f"{TWIN_EPOCHS} epochs",
+          hg["train_loss"] == he["train_loss"] and hg["val_loss"] == he["val_loss"],
+          f"{hg['train_loss']} / {he['train_loss']}")
+    check(f"phase 14 (a): graph route tables within {GRAPH_TABLE_REL_TOL:g} of scale of the "
+          "eager route's", gap <= GRAPH_TABLE_REL_TOL * scale,
+          f"max gap {gap:.3e}, scale {scale:.3e}")
+    same = {sc: all(torch.equal(a, b) for a, b in zip(runs[sc][0].params, g0.params))
+            and runs[sc][0].history == hg for sc in (1, 7)}
+    check("phase 14 (b): scan_chunk 1 and 7 give tables and history identical to scan_chunk 0",
+          all(same.values()), f"{same}")
+    counts = {sc: r[1] for sc, r in runs.items()}
+    check(f"phase 14 (d): dual_matmul launches 6 an epoch on the graph route ({TWIN_EPOCHS} "
+          "epochs) at every scan_chunk, and on the eager route",
+          set(counts.values()) == {6 * TWIN_EPOCHS} and eager[1] == 6 * TWIN_EPOCHS,
+          f"graph {counts}, eager {eager[1]}")
+    row.update(ml1m_graph_s=runs[0][2], ml1m_eager_s=eager[2], ml1m_graph_peak_gb=runs[0][3],
+               ml1m_eager_peak_gb=eager[3], ml1m_table_gap=gap, ml1m_table_scale=scale,
+               launches_by_scan_chunk=counts)
+    launches = {"dual_matmul": runs[0][1]}
+    del runs, eager, g0
+
+    # (c) the COO route on the bench's uniform 50,000 x 30,000 graph
+    LU, LI, LE = 50_000, 30_000, 2_000_000
+    rng = np.random.default_rng(3)
+    leu = rng.integers(0, LU, LE).astype(np.int32)
+    lei = rng.integers(0, LI, LE).astype(np.int32)
+    ceu = torch.from_numpy(leu.astype(np.int64)).to(dev)
+    cei = torch.from_numpy(lei.astype(np.int64)).to(dev)
+    binc = build_bucketed_incidence(leu, lei, edge_gcn_norm(ceu, cei, LU, LI).cpu().numpy(),
+                                    LU, LI, device=dev)
+    keys = csr_keys(*user_csr(LU, EdgeSet(leu, lei)), dev)
+    coo_rest = (binc, ceu, cei, keys)
+
+    def coo_tables():
+        p = init_lightgcn(torch.Generator().manual_seed(SEED), LU, LI, D, dev)
+        return LightGCNParams(*(t.clone().requires_grad_(True) for t in p))
+
+    coo = {}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for route in ("graph", "eager capturable", "eager"):
+            p = coo_tables()
+            opt = trainer.make_optimizer(hp, p, capturable=route != "eager")
+            if route == "graph":
+                scan = trainer.make_coo_train_scan(opt, hp, LI)
+                loss = scan(p, hp.seed, 0, GRAPH_COO_EPOCHS, *coo_rest)
+                torch.cuda.synchronize()
+                row["coo_captures"] = scan.captures
+                scan.release()
+            else:
+                step = trainer.make_coo_train_step(opt, hp, LI)
+                for e in range(GRAPH_COO_EPOCHS):
+                    loss = step(p, e, trainer.epoch_generator(hp.seed, e, dev), *coo_rest)
+            coo[route] = (p, float(loss))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    bitwise = all(torch.equal(a, b) for a, b in zip(coo["graph"][0], coo["eager capturable"][0]))
+    cgap, cscale = gap_of(coo["graph"][0], coo["eager"][0])
+    print(f"[phase 14] COO route {LU} x {LI}, {GRAPH_COO_EPOCHS} epochs: last losses "
+          f"{json.dumps({r: v[1] for r, v in coo.items()})}; graph vs eager max table gap "
+          f"{cgap:.3e} (scale {cscale:.3e}); captures {row['coo_captures']}", flush=True)
+    check(f"phase 14 (c): the COO route's graph over {GRAPH_COO_EPOCHS} epochs bitwise equal to "
+          "its eager steps under the same (capturable) Adam", bitwise and
+          coo["graph"][1] == coo["eager capturable"][1])
+    check(f"phase 14 (c): the COO route's graph within {GRAPH_TABLE_REL_TOL:g} of scale of the "
+          "eager route", cgap <= GRAPH_TABLE_REL_TOL * cscale,
+          f"max gap {cgap:.3e}, scale {cscale:.3e}")
+    row.update(coo_table_gap=cgap, coo_table_scale=cscale)
+    del coo, binc, keys, coo_rest
+
+    # (e) ms a step: a graph of GRAPH_TIMING_EPOCHS epochs replayed, and as
+    # many eager steps (the default Adam), in turns, after a first chunk of
+    # each; the peak memory of each route's first chunk over what was
+    # allocated before its tables were made (tables, Adam's state, the
+    # graph's pool or the eager step's temporaries)
+    n = GRAPH_TIMING_EPOCHS
+
+    def peak_of(make_route):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        route = make_route()
+        torch.cuda.synchronize()
+        return route, (torch.cuda.max_memory_allocated() - base) / 1e9
+
+    def graph_route():
+        p = opti_tables()
+        scan = trainer.make_train_scan(trainer.make_optimizer(hp, p, capturable=True), hp, I,
+                                       bf16_matmul=True, use_kernel=True)
+        scan(p, hp.seed, 0, n + 1, *rest)  # epoch 0 eager, the capture of n
+        return p, scan
+
+    def eager_route():
+        p = opti_tables()
+        step = trainer.make_train_step(trainer.make_optimizer(hp, p), hp, I, bf16_matmul=True,
+                                       use_kernel=True)
+        for e in range(n + 1):
+            step(p, e, trainer.epoch_generator(hp.seed, e, dev), *rest)
+        return p, step
+
+    (pg, scan), graph_peak = peak_of(graph_route)
+    (pe, step), eager_peak = peak_of(eager_route)
+    epoch = {"graph": n + 1, "eager": n + 1}
+
+    def graph_chunk():
+        scan(pg, hp.seed, epoch["graph"], n, *rest)
+        epoch["graph"] += n
+
+    def eager_chunk():
+        for e in range(epoch["eager"], epoch["eager"] + n):
+            step(pe, e, trainer.epoch_generator(hp.seed, e, dev), *rest)
+        epoch["eager"] += n
+
+    ms = {"graph": [], "eager": []}
+    for route in ("graph", "eager", "eager", "graph"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (graph_chunk if route == "graph" else eager_chunk)()
+        torch.cuda.synchronize()
+        ms[route].append((time.perf_counter() - t0) * 1e3 / n)
+    row.update(timing_captures=scan.captures, graph_ms_per_step=ms["graph"],
+               eager_ms_per_step=ms["eager"], graph_peak_gb=graph_peak,
+               eager_peak_gb=eager_peak)
+    scan.release()
+    extra = (env.get("bench") or {}).get("record", {}).get("extra", {})
+    busy = {"graph": extra.get("headline_device_busy_ms", "not measured"),
+            "eager": extra.get("headline_eager_device_busy_ms", "not measured")}
+    row.update(graph_busy_ms=busy["graph"], eager_busy_ms=busy["eager"])
+    print(f"[phase 14] (e) ML-1M kernel route, {n} epochs a chunk: graph {ms['graph']} ms a "
+          f"step, eager {ms['eager']} ms a step; device busy ms a step (phase 12's bench "
+          f"process, one profiler window each) graph {busy['graph']}, eager {busy['eager']}; "
+          f"capture (epochs, s) {scan.captures}; peak device memory graph {graph_peak:.4f} GB "
+          f"(tables, Adam, graph pool), eager {eager_peak:.4f} GB [{smi}]", flush=True)
+    check("phase 14 (e): both routes timed, the graph's capture recorded",
+          all(v > 0 for vs in ms.values() for v in vs) and scan.captures[0][0] == n)
+    return {"launches": launches, "row": row}
 
 
 def module_child():
@@ -3832,6 +4142,18 @@ def main() -> int:
               f"launches {phase13['launches']} [{smi}]", flush=True)
         for row in report:
             row["phase13_launches"] = phase13["launches"][row["name"]]
+
+    # -- 14. the trainer's multi-epoch intervals as CUDA graphs ------------------
+    print(f"[phase 14] the trainer's CUDA graphs on {smi}", flush=True)
+    t0 = time.perf_counter()
+    phase14 = check.guard("phase 14", graph_phase, check, dev, smi, {
+        "graph": graph, "feats": (feats_u, feats_i), "bench": phase12})
+    if phase14:
+        print(f"[phase 14] {time.perf_counter() - t0:.1f} s (budget {GRAPH_BUDGET_S} s); "
+              f"launches {phase14['launches']} [{smi}]", flush=True)
+        print(f"[phase 14] row {json.dumps(phase14['row'])}", flush=True)
+        for row in report:
+            row["phase14_launches"] = phase14["launches"].get(row["name"], 0)
 
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
     if check.failures:

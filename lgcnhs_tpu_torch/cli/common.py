@@ -15,9 +15,10 @@ with ``--device cpu`` the ranks are CPU processes on gloo);
 ``load_pipeline`` loads the data on rank 0 and hands it to the others.
 ``--coo-table-sharding`` row-shards the tables on a mesh that trains a
 graph on the COO route. ``--profile DIR`` makes ``cli/main`` record a
-``torch.profiler`` trace (``runtime/logging.profile_trace``). Flags left
-out: ``--platform`` (``--device`` plays its part) and ``--scan-chunk`` (no
-``lax.scan`` to chunk).
+``torch.profiler`` trace (``runtime/logging.profile_trace``).
+``--scan-chunk N`` sets ``compute.scan_chunk``, the most epochs one
+captured CUDA graph of the trainer holds (``train/trainer.TrainScan``).
+Flag left out: ``--platform`` (``--device`` plays its part).
 """
 from __future__ import annotations
 
@@ -100,6 +101,15 @@ def base_parser(description: str) -> argparse.ArgumentParser:
         "model/LightGCN/loss.py:58; docs/PARITY.md deviations #6)",
     )
     p.add_argument(
+        "--scan-chunk",
+        type=int,
+        default=None,
+        metavar="N",
+        help="max epochs per device program (bounds single-execution "
+        "wall-clock on relayed TPUs; chunking never changes the model — "
+        "the per-epoch fold_in key stream is dispatch-invariant)",
+    )
+    p.add_argument(
         "--device",
         choices=["cuda", "cpu"],
         default="cuda",
@@ -141,6 +151,8 @@ def config_from_args(args: argparse.Namespace) -> Config:
         overrides["synthetic_items"] = args.items
     if args.interactions is not None:
         overrides["synthetic_interactions"] = args.interactions
+    if args.scan_chunk is not None:
+        overrides["compute.scan_chunk"] = args.scan_chunk
     if args.neg_range is not None:
         overrides["hparams.neg_range"] = args.neg_range
     if args.dtype is not None:

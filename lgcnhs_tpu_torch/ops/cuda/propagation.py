@@ -21,7 +21,10 @@ The wrappers given CPU tensors run the twin; given CUDA tensors they launch
 the kernel or raise. ``dual_matmul.launches`` counts the calls that
 launched the kernel, forward and backward; ``dual_matmul.reduce_launches``
 those that also launched its second kernel, the fixed-order sum of the
-split-K parts.
+split-K parts. A launch captured into a CUDA graph counts at each replay
+(``ops/cuda/launches``). The split-K workspace is kept per stream; a
+stream's must exist before a graph captures a launch on it (a first call
+on that stream makes it), and ``release_workspace`` drops it.
 """
 from __future__ import annotations
 
@@ -32,6 +35,7 @@ from typing import Callable, Dict, Tuple
 import torch
 
 from lgcnhs_tpu_torch.ops.cuda import build
+from lgcnhs_tpu_torch.ops.cuda.launches import count_launch
 
 MAX_D = 128  # propagation.cu: output tiles up to 128 columns
 CHUNK = 64  # propagation.cu kTile: the depth (items or users) of one chunk
@@ -216,11 +220,22 @@ _WORKSPACES: Dict[Tuple[torch.device, int], torch.Tensor] = {}
 def _workspace(dev: torch.device, stream: int, n: int) -> torch.Tensor:
     """A buffer of at least ``n`` floats for the split-K partials, one per
     (device, stream), grown as needed: launches on one stream run in order,
-    so each launch may reuse what the one before it used."""
+    so each launch may reuse what the one before it used. Inside a graph
+    capture it is not allocated: it would live in the graph's pool."""
     ws = _WORKSPACES.get((dev, stream))
     if ws is None or ws.numel() < n:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                "dual_matmul: a CUDA graph captures a launch on a stream without its split-K "
+                "workspace; call dual_matmul once at these shapes on that stream first")
         ws = _WORKSPACES[(dev, stream)] = torch.empty(n, dtype=torch.float32, device=dev)
     return ws
+
+
+def release_workspace(stream: torch.cuda.Stream) -> None:
+    """Drops the split-K workspace kept for ``stream`` (a graph's capture
+    stream, once its graphs are gone)."""
+    _WORKSPACES.pop((stream.device, stream.cuda_stream), None)
 
 
 def _dual_kernel(R, X, Y) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -254,9 +269,9 @@ def _dual_kernel(R, X, Y) -> Tuple[torch.Tensor, torch.Tensor]:
             r_code, e_code, R.data_ptr(), R.stride(0), X_c.data_ptr(), Y_c.data_ptr(), lde,
             U, I, D, su, si, ws, out_u.data_ptr(), out_i.data_ptr(), stream)
     build.check_launch(lib, rc, "dual_matmul")
-    dual_matmul.launches += 1
+    count_launch(dual_matmul)
     if n_ws:
-        dual_matmul.reduce_launches += 1
+        count_launch(dual_matmul, "reduce_launches")
     return out_u, out_i
 
 

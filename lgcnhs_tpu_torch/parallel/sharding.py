@@ -432,8 +432,9 @@ def make_sharded_train_scan(plan: ShardingPlan, optimizer, hp, n_items: int,
     ``epoch_generator(seed, epoch, device)`` as the single-device trainer
     does. ``train_scan(params, seed, epoch0, n_steps, R_blk, edge_users,
     edge_items, pos_blk) -> the last step's loss``. The mesh trainer runs
-    the step in the single-device trainer's epoch loop instead, since
-    eager PyTorch gains nothing from grouping epochs."""
+    the step one epoch at a time in the trainer's chunk loop
+    (``train/trainer._train_epochs``): a sharded scan as a CUDA graph would
+    hold NCCL calls inside the graph."""
     return _scan(plan, make_sharded_train_step(plan, optimizer, hp, n_items, bf16_matmul, neg_hi))
 
 

@@ -49,14 +49,18 @@ def optimizer_state(optimizer: torch.optim.Adam, params: LightGCNParams) -> Opti
 def load_optimizer_state(optimizer: torch.optim.Adam, params: LightGCNParams,
                          state: OptimizerState) -> None:
     """Put ``state`` in as Adam's state of ``params``' tables: the moments on
-    the table's device in the table's dtype (checked), ``step`` as saved."""
+    the table's device in the table's dtype (checked), ``step`` as saved on
+    the host, or for a capturable Adam on the table's device as float64
+    (``train/trainer.make_optimizer``)."""
+    capturable = all(group.get("capturable") for group in optimizer.param_groups)
     for name, t in zip(TABLES, params):
         s = state[name]
         for m in ("exp_avg", "exp_avg_sq"):
             if s[m].shape != t.shape or s[m].dtype != t.dtype:
                 raise ValueError(f"{name}.{m}: checkpoint {tuple(s[m].shape)} {s[m].dtype}, "
                                  f"table {tuple(t.shape)} {t.dtype}")
-        optimizer.state[t] = {"step": s["step"].clone().cpu(),
+        optimizer.state[t] = {"step": s["step"].to(t.device, torch.float64, copy=True)
+                              if capturable else s["step"].clone().cpu(),
                               "exp_avg": s["exp_avg"].to(t.device).clone(),
                               "exp_avg_sq": s["exp_avg_sq"].to(t.device).clone()}
 

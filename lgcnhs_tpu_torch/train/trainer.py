@@ -18,8 +18,15 @@ Port of the single-device branches of ``lgcnhs_tpu/train/trainer.py``
   run resumes after the newest checkpoint's epoch with the previous run's
   history rows before it carried over.
 
-The JAX step is one jitted XLA program; here a step is eager PyTorch, one
-Python call per epoch. Training routes, chosen as JAX chooses
+JAX runs the epochs between two eval or checkpoint boundaries as one
+jitted ``lax.scan`` (``make_train_scan``, ``make_coo_train_scan``), at most
+``compute.scan_chunk`` epochs a program (``--scan-chunk``). Here the same
+chunk loop runs them through ``TrainScan``: on the card one captured CUDA
+graph a chunk length, replayed (the capturable Adam of
+``make_optimizer``, its lr a device scalar); on the CPU the loop of the
+eager step, the twin the tests use. An epoch that stands alone between
+boundaries runs the eager step, as in JAX. Any chunking gives the same
+model, bitwise on the CPU. Training routes, chosen as JAX chooses
 (``choose_propagation`` and the eval layout):
 
 - dense: the normalized (U, I) incidence through ``ops/propagation``;
@@ -58,14 +65,17 @@ on each rank's int8 item block on the kernel route) and the evaluation
 ranks through the distributed masked top-k. A graph that takes the COO
 propagation shards its edge list over every rank instead, with the tables
 whole on every rank or, with ``compute.coo_table_sharding``, row-sharded,
-and evaluates through the user-sharded CSR top-k. ``--scan-chunk`` has no
-counterpart without jit.
+and evaluates through the user-sharded CSR top-k. The mesh runs one eager
+step an epoch in the same chunk loop; its scans are loops
+(``parallel/sharding``).
 """
 from __future__ import annotations
 
 import os
+import time
+from collections import Counter
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional
+from typing import Dict, List, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -95,11 +105,13 @@ from lgcnhs_tpu_torch.models.lightgcn import (
     sample_negatives_for_edges,
 )
 from lgcnhs_tpu_torch.ops import metrics_ops
+from lgcnhs_tpu_torch.ops.cuda.launches import add_replays, capture_tally
 from lgcnhs_tpu_torch.ops.cuda.propagation import (
     fits_dual,
     lightgcn_propagate_dual,
     lightgcn_propagate_dual_binary,
     pad_for_dual,
+    release_workspace,
 )
 from lgcnhs_tpu_torch.ops.propagation import (
     build_bucketed_incidence,
@@ -153,12 +165,43 @@ def lr_schedule(lr0: float, gamma: float, decay_every: int):
     return schedule
 
 
-def make_optimizer(hp, params: LightGCNParams) -> torch.optim.Adam:
+def make_optimizer(hp, params: LightGCNParams, capturable: bool = False) -> torch.optim.Adam:
     """``torch.optim.Adam(lr)`` over the two tables, the reference's
     optimizer; the train step sets each update's lr from ``lr_schedule``
     (the reference's ExponentialLR; ``docs/PARITY.md`` section 2.6 pins
-    optax Adam to this pair)."""
-    return torch.optim.Adam([params.user_emb, params.item_emb], lr=hp.lr)
+    optax Adam to this pair). ``capturable`` (the card's graph route,
+    ``TrainScan``): Adam's step count and bias corrections on the tables'
+    device, and its lr a device scalar that each update writes in place,
+    so that an update can be captured into a CUDA graph. Its state is made
+    here, as Adam's first step would make it but for the step count, which
+    is float64 (Adam's own is float32): the bias corrections and the lr
+    are then taken in double on the device, as the default Adam takes them
+    on the host, and rounded to f32 where the update uses them. What is
+    left between the two is the update's order of operations (the
+    capturable Adam divides the denominator by the step size, the default
+    multiplies by it)."""
+    tables = [params.user_emb, params.item_emb]
+    if not capturable:
+        return torch.optim.Adam(tables, lr=hp.lr)
+    device = params.user_emb.device
+    lr = torch.tensor(hp.lr, dtype=torch.float64, device=device)
+    optimizer = torch.optim.Adam(tables, lr=lr, capturable=True)
+    for t in tables:
+        optimizer.state[t] = {"step": torch.zeros((), dtype=torch.float64, device=device),
+                              "exp_avg": torch.zeros_like(t), "exp_avg_sq": torch.zeros_like(t)}
+    return optimizer
+
+
+def _set_lr(optimizer, lr) -> None:
+    """Every group's lr: a float, or written into a capturable optimizer's
+    device scalar (from a float, or a device value inside a graph)."""
+    for group in optimizer.param_groups:
+        if not torch.is_tensor(group["lr"]):
+            group["lr"] = lr
+        elif torch.is_tensor(lr):
+            group["lr"].copy_(lr)
+        else:
+            group["lr"].fill_(lr)
 
 
 def epoch_seed(seed: int, epoch: int) -> int:
@@ -214,6 +257,12 @@ def _loss_fn(params, R_hat, users, pos_items, neg_items, epsilon, n_layers,
     return _bpr_of_finals(params, u_final, i_final, users, pos_items, neg_items, epsilon)
 
 
+#: Whether ``train_lightgcn`` runs the epochs between its boundaries
+#: through ``make_train_scan`` / ``make_coo_train_scan`` (captured CUDA
+#: graphs on the card, the step's loop on the CPU), as JAX runs its scan.
+#: False runs one eager step an epoch with the default Adam, the route the
+#: graphs are held against on the card (``chip_smoke.py`` phase 14).
+CUDA_GRAPHS = True
 #: Device-memory budget of a dense (U, I) incidence / f32 eval-array set,
 #: the JAX trainer's 4 GB. Tests shrink it to pin the routes.
 DENSIFY_BUDGET_BYTES = 4e9
@@ -248,23 +297,182 @@ def uses_kernels(compute, device: torch.device) -> bool:
     return bool(compute.use_pallas) and device.type == "cuda"
 
 
-def _make_step(optimizer, hp, sample, loss_of):
-    """One epoch: sample -> forward -> BPR -> Adam update with the epoch's
-    lr, as ``train_step(params, epoch, generator, graph_op, edge_users,
-    edge_items, rejection) -> loss`` (detached, before the update)."""
-    schedule = lr_schedule(hp.lr, hp.gamma, hp.epoch_per_lr_decay)
+def _make_update(optimizer, sample, loss_of):
+    """One epoch's work: sample -> forward -> BPR -> Adam update, as
+    ``update(params, generator, lr, graph_op, edge_users, edge_items,
+    rejection) -> loss`` (detached, before the update); ``lr`` as
+    ``_set_lr`` takes it."""
 
-    def train_step(params, epoch, generator, graph_op, edge_users, edge_items, rejection):
+    def update(params, generator, lr, graph_op, edge_users, edge_items, rejection):
         users, pos_items, neg_items = sample(generator, edge_users, edge_items, rejection)
         optimizer.zero_grad(set_to_none=True)
         loss = loss_of(params, graph_op, users, pos_items, neg_items)
         loss.backward()
-        for group in optimizer.param_groups:
-            group["lr"] = schedule(epoch)
+        _set_lr(optimizer, lr)
         optimizer.step()
         return loss.detach()
 
+    return update
+
+
+def _make_step(optimizer, hp, sample, loss_of):
+    """One epoch at its lr, as ``train_step(params, epoch, generator,
+    graph_op, edge_users, edge_items, rejection) -> loss``."""
+    return _epoch_step(hp, _make_update(optimizer, sample, loss_of))
+
+
+def _epoch_step(hp, update):
+    schedule = lr_schedule(hp.lr, hp.gamma, hp.epoch_per_lr_decay)
+
+    def train_step(params, epoch, generator, *step_rest):
+        return update(params, generator, schedule(epoch), *step_rest)
+
     return train_step
+
+
+def _tensors(x):
+    """The tensors in ``x``, through nested tuples and lists."""
+    if torch.is_tensor(x):
+        yield x
+    elif isinstance(x, (tuple, list)):
+        for y in x:
+            yield from _tensors(y)
+
+
+class _Captured(NamedTuple):
+    """One captured chunk length."""
+
+    graph: torch.cuda.CUDAGraph
+    generators: List[torch.Generator]  # one an epoch, registered with the graph
+    lrs: torch.Tensor  # the epochs' rates, read by the graph
+    loss: torch.Tensor  # the last epoch's loss, written by the graph
+    tally: Counter  # the launches its capture noted (ops/cuda/launches)
+    addresses: List[int]  # of the tables and step_rest it was captured on
+
+
+class TrainScan:
+    """``train_scan(params, seed, epoch0, n_steps, *step_rest) -> loss``:
+    epochs ``epoch0 .. epoch0 + n_steps - 1`` of a step's update, epoch e
+    drawing from ``epoch_generator(seed, e)`` at ``lr_schedule``'s rate of
+    e, the last epoch's loss returned (detached). The port of JAX
+    ``make_train_scan``'s ``lax.scan``: any chunking gives the model
+    ``n_steps`` calls of the step give.
+
+    - On CUDA: one ``torch.cuda.CUDAGraph`` a chunk length (JAX's static
+      ``n_steps``: one program a length), captured on a side stream at the
+      first call of that length and replayed for it and every later one.
+      Before each replay the graph's ``n_steps`` generators (registered
+      with it) are seeded with their epochs' seeds, and the epochs' rates
+      are copied into the lr vector that each captured update copies into
+      Adam's lr. The scan's first call runs its first epoch eagerly on the
+      side stream, so that what the update makes on its first use there
+      (the kernels' split-K workspace, cuBLAS's) is made outside every
+      graph's pool, and captures the rest. The optimizer must be
+      ``make_optimizer(..., capturable=True)``'s, its state made; the
+      tables and ``step_rest`` must be the tensors a graph was captured on
+      (it holds their addresses). A failed capture raises. A kernel's
+      launches inside a graph count at each replay
+      (``ops/cuda/launches``). ``captures`` lists (n_steps, seconds) of
+      each capture; ``release()`` frees the graphs and their pools.
+    - On the CPU: the loop of the update, the twin the tests use.
+    """
+
+    def __init__(self, optimizer, hp, update):
+        self._optimizer = optimizer
+        self._update = update
+        self._schedule = lr_schedule(hp.lr, hp.gamma, hp.epoch_per_lr_decay)
+        self._graphs: Dict[int, _Captured] = {}
+        self._stream = None
+        self.captures: List[tuple] = []
+
+    def __call__(self, params, seed: int, epoch0: int, n_steps: int, *step_rest):
+        if n_steps < 1:
+            raise ValueError(f"train_scan: n_steps must be >= 1 (got {n_steps})")
+        device = params.user_emb.device
+        if device.type != "cuda":
+            for e in range(epoch0, epoch0 + n_steps):
+                loss = self._update(params, epoch_generator(seed, e, device), self._schedule(e),
+                                    *step_rest)
+            return loss
+        if self._stream is None:
+            loss = self._first_epoch(params, seed, epoch0, step_rest)
+            epoch0, n_steps = epoch0 + 1, n_steps - 1
+            if n_steps == 0:
+                return loss
+        cap = self._graphs.get(n_steps) or self._capture(params, n_steps, step_rest)
+        if [t.data_ptr() for t in _tensors((params, step_rest))] != cap.addresses:
+            raise ValueError("train_scan: called on other tensors than its graph of "
+                             f"{n_steps} epochs was captured on")
+        epochs = range(epoch0, epoch0 + n_steps)
+        for g, e in zip(cap.generators, epochs):
+            g.manual_seed(epoch_seed(seed, e))
+        cap.lrs.copy_(torch.tensor([self._schedule(e) for e in epochs], dtype=cap.lrs.dtype))
+        cap.graph.replay()
+        add_replays(cap.tally)
+        return cap.loss.clone()
+
+    def _first_epoch(self, params, seed: int, epoch: int, step_rest):
+        opt = self._optimizer
+        if not all(group.get("capturable") for group in opt.param_groups) \
+                or not all(opt.state.get(t) for t in params):
+            raise ValueError("train_scan on CUDA needs a capturable optimizer with its state: "
+                             "make_optimizer(hp, params, capturable=True)")
+        device = params.user_emb.device
+        current = torch.cuda.current_stream(device)
+        self._stream = torch.cuda.Stream(device)
+        self._stream.wait_stream(current)
+        with torch.cuda.stream(self._stream):
+            loss = self._update(params, epoch_generator(seed, epoch, device),
+                                self._schedule(epoch), *step_rest)
+        current.wait_stream(self._stream)
+        loss.record_stream(current)
+        return loss
+
+    def _capture(self, params, n_steps: int, step_rest) -> _Captured:
+        t0 = time.perf_counter()
+        device = params.user_emb.device
+        generators = [torch.Generator(device=device) for _ in range(n_steps)]
+        lrs = torch.empty(n_steps, dtype=self._optimizer.param_groups[0]["lr"].dtype,
+                          device=device)
+        graph = torch.cuda.CUDAGraph()
+        for g in generators:
+            graph.register_generator_state(g)
+        with capture_tally() as tally, torch.cuda.graph(graph, stream=self._stream):
+            for k in range(n_steps):
+                loss = self._update(params, generators[k], lrs[k], *step_rest)
+        cap = self._graphs[n_steps] = _Captured(
+            graph, generators, lrs, loss, tally,
+            [t.data_ptr() for t in _tensors((params, step_rest))])
+        self.captures.append((n_steps, time.perf_counter() - t0))
+        return cap
+
+    def release(self) -> None:
+        """Frees the captured graphs (their pools) and the capture stream's
+        kernel workspace."""
+        if self._stream is not None:
+            torch.cuda.synchronize(self._stream.device)
+            release_workspace(self._stream)
+        for cap in self._graphs.values():
+            cap.graph.reset()
+        self._graphs.clear()
+        self._stream = None
+
+
+def _dense_update(optimizer, hp, n_items: int, bf16_matmul: bool, use_kernel: bool,
+                  neg_hi: Optional[int], csr_sampler: bool):
+    """``make_train_step``'s update (``_make_update``); the sampler is looked
+    up in this module when it is called."""
+    hi = neg_hi if neg_hi is not None else n_items
+
+    def sample(generator, edge_users, edge_items, rejection):
+        sampler = sample_bpr_batch_csr if csr_sampler else sample_bpr_batch
+        return sampler(generator, edge_users, edge_items, rejection, hp.batch_size, hi)
+
+    def loss_of(params, R_hat, users, pos_items, neg_items):
+        return _loss_fn(params, R_hat, users, pos_items, neg_items, hp.epsilon, hp.layers,
+                        bf16_matmul, use_kernel)
+
+    return _make_update(optimizer, sample, loss_of)
 
 
 def make_train_step(optimizer, hp, n_items: int, bf16_matmul: bool = False,
@@ -276,25 +484,25 @@ def make_train_step(optimizer, hp, n_items: int, bf16_matmul: bool = False,
     argument is the (U, I) ``pos_mask``, or with ``csr_sampler`` the CSR keys
     of ``ops/scalable.csr_keys`` (the same triples; the kernel route and the
     rung use it where the eval arrays do not fit)."""
-    hi = neg_hi if neg_hi is not None else n_items
-
-    def sample(generator, edge_users, edge_items, rejection):
-        sampler = sample_bpr_batch_csr if csr_sampler else sample_bpr_batch
-        return sampler(generator, edge_users, edge_items, rejection, hp.batch_size, hi)
-
-    def loss_of(params, R_hat, users, pos_items, neg_items):
-        return _loss_fn(params, R_hat, users, pos_items, neg_items, hp.epsilon, hp.layers,
-                        bf16_matmul, use_kernel)
-
-    return _make_step(optimizer, hp, sample, loss_of)
+    return _epoch_step(hp, _dense_update(optimizer, hp, n_items, bf16_matmul, use_kernel,
+                                         neg_hi, csr_sampler))
 
 
-def make_coo_train_step(optimizer, hp, n_items: int, neg_hi: Optional[int] = None):
-    """The large-graph step (JAX ``make_coo_train_step``): the forward and
-    the backward over the bucketed incidence of ``build_bucketed_incidence``
-    (gathers and dense sums only), negatives rejected against CSR keys; the
-    edges keep their original order, so the triples are the dense
-    sampler's."""
+def make_train_scan(optimizer, hp, n_items: int, bf16_matmul: bool = False,
+                    use_kernel: bool = False, neg_hi: Optional[int] = None,
+                    csr_sampler: bool = False) -> TrainScan:
+    """``make_train_step`` over ``n_steps`` epochs (JAX ``make_train_scan``):
+    ``train_scan(params, seed, epoch0, n_steps, graph_op, edge_users,
+    edge_items, rejection) -> the last epoch's loss``, the model of
+    ``n_steps`` calls of the step (``TrainScan``: a CUDA graph on the card,
+    the step's loop on the CPU)."""
+    return TrainScan(optimizer, hp, _dense_update(optimizer, hp, n_items, bf16_matmul,
+                                                  use_kernel, neg_hi, csr_sampler))
+
+
+def _coo_update(optimizer, hp, n_items: int, neg_hi: Optional[int]):
+    """``make_coo_train_step``'s update (``_make_update``); the sampler is
+    looked up in this module when it is called."""
     hi = neg_hi if neg_hi is not None else n_items
 
     def sample(generator, edge_users, edge_items, keys):
@@ -306,7 +514,23 @@ def make_coo_train_step(optimizer, hp, n_items: int, neg_hi: Optional[int] = Non
         return _bpr_of_finals(params, u_final, i_final, users, pos_items, neg_items,
                               hp.epsilon)
 
-    return _make_step(optimizer, hp, sample, loss_of)
+    return _make_update(optimizer, sample, loss_of)
+
+
+def make_coo_train_step(optimizer, hp, n_items: int, neg_hi: Optional[int] = None):
+    """The large-graph step (JAX ``make_coo_train_step``): the forward and
+    the backward over the bucketed incidence of ``build_bucketed_incidence``
+    (gathers and dense sums only), negatives rejected against CSR keys; the
+    edges keep their original order, so the triples are the dense
+    sampler's."""
+    return _epoch_step(hp, _coo_update(optimizer, hp, n_items, neg_hi))
+
+
+def make_coo_train_scan(optimizer, hp, n_items: int, neg_hi: Optional[int] = None) -> TrainScan:
+    """``make_coo_train_step`` over ``n_steps`` epochs (JAX
+    ``make_coo_train_scan``): ``train_scan(params, seed, epoch0, n_steps,
+    binc, edge_users, edge_items, keys)`` (``TrainScan``)."""
+    return TrainScan(optimizer, hp, _coo_update(optimizer, hp, n_items, neg_hi))
 
 
 @torch.no_grad()
@@ -489,12 +713,19 @@ def train_lightgcn(
             return csr_metrics(chunked_masked_topk(params.user_emb, params.item_emb, rowptr,
                                                    cols, cfg.k))
 
-    optimizer = make_optimizer(hp, params)
+    optimizer = make_optimizer(hp, params, capturable=CUDA_GRAPHS and device.type == "cuda")
     if propagation == "coo":
-        train_step = make_coo_train_step(optimizer, hp, I, neg_hi=neg_hi_train)
+        make_step, make_scan, kw = make_coo_train_step, make_coo_train_scan, {}
     else:
-        train_step = make_train_step(optimizer, hp, I, bf16_matmul=_bf16, use_kernel=_kernel,
-                                     neg_hi=neg_hi_train, csr_sampler=not eval_dense)
+        make_step, make_scan = make_train_step, make_train_scan
+        kw = {"bf16_matmul": _bf16, "use_kernel": _kernel, "csr_sampler": not eval_dense}
+    train_step = make_step(optimizer, hp, I, neg_hi=neg_hi_train, **kw)
+    train_scan = make_scan(optimizer, hp, I, neg_hi=neg_hi_train, **kw) if CUDA_GRAPHS else None
+    step_rest = (graph_op, edge_users, edge_items, rejection)
+    log.info("training %s: epochs between evaluations and checkpoints %s, at most %s a chunk",
+             model_name, "one eager step each" if train_scan is None else
+             "as captured CUDA graphs" if device.type == "cuda" else "as the step's loop",
+             cfg.compute.scan_chunk if cfg.compute.scan_chunk > 0 else "an interval")
 
     start_epoch = 0
     restored = restore_train_state(checkpoint_dir, device) if checkpoint_dir else None
@@ -515,15 +746,23 @@ def train_lightgcn(
     history: Dict[str, List[float]] = {name: [] for name in HISTORY_COLUMNS}
     if start_epoch > 0 and save_artifacts:
         _carry_history(cfg, model_name, history, start_epoch)
-    with stage_timer(f"{model_name} training done ({hp.epochs} epochs)", log):
-        _train_epochs(
-            cfg, log, history, device, start_epoch,
-            lambda epoch, gen: train_step(params, epoch, gen, graph_op, edge_users, edge_items,
-                                          rejection),
-            lambda gen: val_loss(params, gen), lambda: eval_fn(params),
-            checkpoint_every if checkpoint_dir else 0,
-            lambda epoch: save_train_state(checkpoint_dir, epoch, params,
-                                           optimizer_state(optimizer, params)))
+    try:
+        with stage_timer(f"{model_name} training done ({hp.epochs} epochs)", log):
+            _train_epochs(
+                cfg, log, history, device, start_epoch,
+                lambda epoch, gen: train_step(params, epoch, gen, *step_rest),
+                lambda gen: val_loss(params, gen), lambda: eval_fn(params),
+                checkpoint_every if checkpoint_dir else 0,
+                lambda epoch: save_train_state(checkpoint_dir, epoch, params,
+                                               optimizer_state(optimizer, params)),
+                scan=None if train_scan is None else
+                lambda e0, n: train_scan(params, hp.seed, e0, n, *step_rest))
+    finally:
+        if train_scan is not None:
+            if train_scan.captures:
+                log.info("training %s: captured graphs (epochs, seconds) %s", model_name,
+                         train_scan.captures)
+            train_scan.release()
 
     params = LightGCNParams(params.user_emb.detach(), params.item_emb.detach())
     _save_artifacts(cfg, model_name, params, history, save_artifacts)
@@ -583,21 +822,43 @@ def _negative_ranges(graph, hp):
 
 
 def _train_epochs(cfg: Config, log, history, device, start_epoch: int, step, val_loss, evaluate,
-                  checkpoint_every: int, checkpoint) -> None:
-    """The epoch loop of both trainers: ``step(epoch, generator) -> loss`` on
-    the epoch's own generator, ``checkpoint(epoch)`` every
-    ``checkpoint_every`` epochs (0: never), and every ``epoch_per_eval``
-    epochs ``val_loss(generator)`` on its generator and ``evaluate()``,
-    recorded into ``history``."""
+                  checkpoint_every: int, checkpoint, scan=None) -> None:
+    """The epoch loop of both trainers, JAX's chunk loop
+    (``lgcnhs_tpu/train/trainer.py:988-1025``): the epochs up to the next
+    boundary (an eval epoch, every ``epoch_per_eval``, or a checkpoint
+    epoch, every ``checkpoint_every`` but 0; 0 means never) run as one
+    chunk, through ``scan(epoch0, n_epochs) -> loss`` in sub-chunks of at
+    most ``compute.scan_chunk`` epochs (0: the whole chunk) when the chunk
+    holds more than one epoch and a scan is given, else one
+    ``step(epoch, generator) -> loss`` an epoch on the epoch's own
+    generator. At the boundary: ``checkpoint(epoch)``, then on eval epochs
+    ``val_loss(generator)`` on its generator and ``evaluate()``, recorded
+    into ``history``."""
     hp = cfg.hparams
-    for epoch in range(start_epoch, hp.epochs):
-        loss = step(epoch, epoch_generator(hp.seed, epoch, device))
+
+    def is_boundary(e: int) -> bool:
+        return e % hp.epoch_per_eval == 0 or bool(checkpoint_every and e
+                                                 and e % checkpoint_every == 0)
+
+    epoch = start_epoch
+    while epoch < hp.epochs:
+        last = epoch
+        while last < hp.epochs - 1 and not is_boundary(last):
+            last += 1
+        if scan is not None and last > epoch:
+            sub = max(0, cfg.compute.scan_chunk) or last + 1 - epoch
+            for e0 in range(epoch, last + 1, sub):
+                loss = scan(e0, min(sub, last + 1 - e0))
+        else:
+            for e in range(epoch, last + 1):
+                loss = step(e, epoch_generator(hp.seed, e, device))
+        epoch = last
         if checkpoint_every and epoch and epoch % checkpoint_every == 0:
             checkpoint(epoch)
-        if epoch % hp.epoch_per_eval != 0:
-            continue
-        vloss = val_loss(epoch_generator(hp.seed, hp.epochs + epoch, device))
-        _record_eval(history, epoch, loss, vloss, evaluate(), cfg, log)
+        if epoch % hp.epoch_per_eval == 0:
+            vloss = val_loss(epoch_generator(hp.seed, hp.epochs + epoch, device))
+            _record_eval(history, epoch, loss, vloss, evaluate(), cfg, log)
+        epoch += 1
 
 
 def _record_eval(history, epoch, loss, vloss, metrics, cfg: Config, log) -> None:

@@ -244,6 +244,8 @@ def _card_extra():
     extra = {"card": "NVIDIA H100 80GB HBM3, 700.00 W",
              "train_int8_binary_eps": 227_512.3, "headline_device_busy_ms": 1.0041812345678,
              "headline_idle_share": 0.8712345678901, "headline_launch_check": "matched",
+             "train_int8_binary_eager_eps": 253_595.6,
+             "headline_eager_device_busy_ms": 0.7643212345678,
              "train_bf16_kernel_eps": 201_234.5, "cpu_f32_eps": 5_123.4,
              "train_coo_50kx30k_eps": 18_708.8, "train_densebf16_50kx30k_eps": 17_625.1,
              "diffusion_tall_factored_s": 0.01234, "diffusion_tall_blocked_s": 0.41234,
