@@ -128,7 +128,8 @@ def base_parser(description: str) -> argparse.ArgumentParser:
         default=None,
         metavar="DIR",
         help="record a torch.profiler trace of the run into DIR "
-        "(TensorBoard's *.pt.trace.json, one file a rank)",
+        "(TensorBoard's *.pt.trace.json, one file a rank; the port's spans, "
+        "train.* and serve.*, are ranges in it)",
     )
     return p
 

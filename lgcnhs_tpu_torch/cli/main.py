@@ -13,7 +13,9 @@ Usage:
       [--no-cache] [--device cpu]
 
 ``--profile DIR`` records a ``torch.profiler`` trace of the run (the host,
-and the card on CUDA) into DIR, one ``*.pt.trace.json`` a rank.
+and the card on CUDA) into DIR, one ``*.pt.trace.json`` a rank; the
+program's spans (``runtime/logging.span``: the trainer's ``train.*``,
+``serve_fused``'s ``serve.*``) are named ranges in it.
 
 ``--target-user`` logs one user's list by RAW dataset id (a Douban md5 or a
 MovieLens id, tried as given and then as an int), decoded through the id

@@ -29,6 +29,7 @@ from lgcnhs_tpu_torch.config import Config
 from lgcnhs_tpu_torch.data.graph import InteractionGraph, interaction_matrix, pos_bool_matrix
 from lgcnhs_tpu_torch.models.lightgcn import LightGCNParams, layer0_scores
 from lgcnhs_tpu_torch.ops.cuda.fusion_serve import fused_lgcnhs_serve, fused_lgcnhs_serve_ref
+from lgcnhs_tpu_torch.ops.cuda.launches import count
 from lgcnhs_tpu_torch.ops.diffusion import (
     diffusion_scores_auto, general_spreading_matrix, hybrid_resource, hybrid_transfer,
 )
@@ -36,7 +37,7 @@ from lgcnhs_tpu_torch.ops.topk import MASK_VALUE, rank_exclude_seen_topk
 from lgcnhs_tpu_torch.parallel.sharding import (
     _block_width, _distributed_rank_core, _hybrid_resource_block, _pad_rows,
 )
-from lgcnhs_tpu_torch.runtime.logging import get_logger, stage_timer
+from lgcnhs_tpu_torch.runtime.logging import get_logger, span, stage_timer
 from lgcnhs_tpu_torch.runtime.mesh import (
     MODEL_AXIS, col_sharded, mesh_from_config, replicated, row_sharded,
 )
@@ -81,27 +82,51 @@ def serve_fused(
     catalog size, else the plain chain. ``exact=True`` (CLI
     ``--serve-exact``) is the precision switch: the plain chain on any
     device. Ties go to the lowest index; ``recommend_fused`` is the
-    reference ranker beside it."""
+    reference ranker beside it.
+
+    Each call is a ``serve.pass`` span (counted in ``serve_fused.passes``)
+    holding a ``serve.build`` and a ``serve.upload`` for A and for seen
+    (``serve_fused.h2d_bytes`` adds their bytes, 5 U I),
+    ``serve.transfer_matrix`` (W), ``serve.rank`` (the launch, or the
+    plain chain) and ``serve.download``, which waits for the card
+    (``runtime/logging.span``)."""
     device = params.user_emb.device
     log = get_logger()
-    route = serve_route(device.type, params.user_emb.dtype, exact)
-    if device.type == "cuda":
-        log.info("serve_fused: %s route (%s)", route,
-                 str(params.user_emb.dtype).replace("torch.", ""))
-    with stage_timer(f"{cfg.model} fused serving done", log):
-        A = torch.from_numpy(
-            interaction_matrix(graph.n_users, graph.n_items, graph.train, graph.val)
-        ).to(device)
-        seen = torch.from_numpy(
-            pos_bool_matrix(graph.n_users, graph.n_items, graph.train, graph.val)
-        ).to(device)
-        W = hybrid_transfer(A, general_spreading_matrix(A), cfg.hparams.lambda_)
+    count(_COUNTERS, "passes")
+    with stage_timer(f"{cfg.model} fused serving done", log, "serve.pass"):
+        route = serve_route(device.type, params.user_emb.dtype, exact)
+        if device.type == "cuda":
+            log.info("serve_fused: %s route (%s)", route,
+                     str(params.user_emb.dtype).replace("torch.", ""))
+        U, I = graph.n_users, graph.n_items
+        with span("serve.build"):
+            A = interaction_matrix(U, I, graph.train, graph.val)
+        A = _upload(A, device)
+        with span("serve.build"):
+            seen = pos_bool_matrix(U, I, graph.train, graph.val)
+        seen = _upload(seen, device)
+        with span("serve.transfer_matrix"):
+            W = hybrid_transfer(A, general_spreading_matrix(A), cfg.hparams.lambda_)
         ue, ie = params.user_emb, params.item_emb
-        if route == "plain":
-            rec = _serve_unfused(ue, ie, A, W, seen, cfg.k)
-        else:
-            rec = fused_lgcnhs_serve(ue, ie, A, W, seen, cfg.k)[0]
-        return rec.cpu().numpy()
+        with span("serve.rank"):
+            if route == "plain":
+                rec = _serve_unfused(ue, ie, A, W, seen, cfg.k)
+            else:
+                rec = fused_lgcnhs_serve(ue, ie, A, W, seen, cfg.k)[0]
+        with span("serve.download"):
+            return rec.cpu().numpy()
+
+
+serve_fused.passes = 0  # calls
+serve_fused.h2d_bytes = 0  # bytes of the host arrays the calls handed to .to(device)
+_COUNTERS = serve_fused  # their owner, also where a caller wraps the module's name
+
+
+def _upload(host: np.ndarray, device: torch.device) -> torch.Tensor:
+    """``host`` on ``device`` (a copy to the card), its bytes counted."""
+    with span("serve.upload"):
+        count(_COUNTERS, "h2d_bytes", host.nbytes)
+        return torch.from_numpy(host).to(device)
 
 
 def fused_recommend(

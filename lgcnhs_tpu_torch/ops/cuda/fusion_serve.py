@@ -21,7 +21,9 @@ the kernel or raises. ``fused_lgcnhs_serve.launches`` counts the calls that
 launched the kernel, ``fused_lgcnhs_serve.merge_launches`` those that also
 launched its second kernel, the merge of the catalog parts, and
 ``fused_lgcnhs_serve.split_launches`` the launches of the kernel that splits
-A and W into bf16 parts (two a call, three when A is not exact in bf16).
+A and W into bf16 parts (two a call, three when A is not exact in bf16);
+a launch captured into a CUDA graph counts at each replay
+(``ops/cuda/launches``).
 """
 from __future__ import annotations
 
@@ -32,6 +34,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from lgcnhs_tpu_torch.ops.cuda import build
+from lgcnhs_tpu_torch.ops.cuda.launches import count_launch
 from lgcnhs_tpu_torch.ops.cuda.retrieval import _padded_t, _sm_count, spread_parts
 from lgcnhs_tpu_torch.ops.topk import select_topk
 
@@ -141,7 +144,7 @@ def split_on_card(x: torch.Tensor, n: int, ld: int, transpose: bool = False,
                                    out.data_ptr(), None if inexact is None else inexact.data_ptr(),
                                    torch.cuda.current_stream().cuda_stream)
     build.check_launch(lib, rc, "bf16_parts")
-    fused_lgcnhs_serve.split_launches += 1
+    count_launch(fused_lgcnhs_serve, "split_launches")
     return out
 
 
@@ -223,9 +226,9 @@ def fused_lgcnhs_serve(
     ops = serve_operands(user_emb, item_emb, A, W)
     lib, fn = _launcher()
     idx, vals, parts = launch_kernel(lib, fn, ops, seen, k)
-    fused_lgcnhs_serve.launches += 1
+    count_launch(fused_lgcnhs_serve)
     if parts > 1:
-        fused_lgcnhs_serve.merge_launches += 1
+        count_launch(fused_lgcnhs_serve, "merge_launches")
     return idx, vals
 
 

@@ -16,7 +16,8 @@ Indices are int32, values f32.
 The wrapper given CPU tensors runs the twin; given CUDA tensors it
 launches the kernel or raises. ``fused_topk_retrieval.launches`` counts the
 calls that launched the kernel; ``.merge_launches`` those that also
-launched its second kernel, the merge of the catalog parts.
+launched its second kernel, the merge of the catalog parts; a launch
+captured into a CUDA graph counts at each replay (``ops/cuda/launches``).
 """
 from __future__ import annotations
 
@@ -27,6 +28,7 @@ from typing import Tuple
 import torch
 
 from lgcnhs_tpu_torch.ops.cuda import build
+from lgcnhs_tpu_torch.ops.cuda.launches import count_launch
 from lgcnhs_tpu_torch.ops.topk import MASK_VALUE, select_topk
 
 TOPK_USERS = 48  # users a block, retrieval.cu kTU
@@ -186,9 +188,9 @@ def fused_topk_retrieval(
                 bound.data_ptr(), part_idx.data_ptr(), part_val.data_ptr(), idx.data_ptr(),
                 vals.data_ptr(), torch.cuda.current_stream().cuda_stream)
     build.check_launch(lib, rc, "fused_topk_retrieval")
-    fused_topk_retrieval.launches += 1
+    count_launch(fused_topk_retrieval)
     if parts > 1:
-        fused_topk_retrieval.merge_launches += 1
+        count_launch(fused_topk_retrieval, "merge_launches")
     return idx, vals
 
 

@@ -1,10 +1,18 @@
-"""Logging, stage timing and profiling.
+"""Logging, stage timing, spans and profiling.
 
 Port of ``lgcnhs_tpu/runtime/logging.py``: the console DEBUG + timestamped
 file INFO handlers and the ``@calTimes``-style wall-clock timer of the
 reference's ``utils/log.py`` / ``utils/wrapper.py``, and ``profile_trace``,
 which records a ``torch.profiler`` trace where JAX records a
 ``jax.profiler`` one.
+
+``span(name)`` names a range of the program's host work (the
+trainer's replays and boundaries, ``serve_fused``'s build, upload, W,
+ranking and download): while a profiler session records (``profile_trace``,
+``cli/main --profile``, or any other) it is a ``record_function`` range of
+that session, on the clock the session gives the card's operations, so the
+spans appear in ``--profile`` traces beside the kernels they launch; with
+no session it costs one check. ``stage_timer`` takes a span name too.
 """
 from __future__ import annotations
 
@@ -51,12 +59,38 @@ def get_logger(name: str = "lgcnhs", file_dir: Optional[str] = None) -> logging.
     return logger
 
 
+class span:
+    """``with span(name):`` a named range of the body while a profiler
+    session records, nested ranges under the range open around them. With
+    no session it does nothing beyond that one check: no synchronisation,
+    no device work."""
+
+    __slots__ = ("name", "_range")
+
+    def __init__(self, name: str):
+        self.name, self._range = name, None
+
+    def __enter__(self) -> "span":
+        if torch.autograd._profiler_enabled():
+            self._range = torch.profiler.record_function(self.name)
+            self._range.__enter__()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        if self._range is not None:
+            self._range.__exit__(*exc)
+            self._range = None
+
+
 @contextlib.contextmanager
-def stage_timer(msg: str, logger: Optional[logging.Logger] = None) -> Iterator[None]:
-    """Context-manager counterpart of the reference's ``@calTimes`` decorator."""
+def stage_timer(msg: str, logger: Optional[logging.Logger] = None,
+                span_name: Optional[str] = None) -> Iterator[None]:
+    """Context-manager counterpart of the reference's ``@calTimes``
+    decorator; with ``span_name`` the stage is also a ``span``."""
     log = logger or get_logger()
     start = time.perf_counter()
-    yield
+    with span(span_name) if span_name else contextlib.nullcontext():
+        yield
     log.info("%s, elapsed: %.2f s", msg, time.perf_counter() - start)
 
 
@@ -81,7 +115,8 @@ def profile_trace(log_dir: Optional[str], device: torch.device | str) -> Iterato
     or ``""``. Records the host's activity, and the card's when ``device`` is
     CUDA, and writes a TensorBoard-readable ``rank<r>.<ns>.pt.trace.json``
     into ``log_dir`` (``tensorboard_trace_handler``) on the way out: one file
-    a rank under a process group."""
+    a rank under a process group. The program's spans (``span``) are ranges
+    of the trace."""
     if not log_dir:
         yield
         return

@@ -131,7 +131,7 @@ from lgcnhs_tpu_torch.ops.scalable import (
 )
 from lgcnhs_tpu_torch.ops.topk import masked_topk
 from lgcnhs_tpu_torch.runtime.device import resolve_device
-from lgcnhs_tpu_torch.runtime.logging import get_logger, stage_timer
+from lgcnhs_tpu_torch.runtime.logging import get_logger, span, stage_timer
 from lgcnhs_tpu_torch.runtime.mesh import (
     MODEL_AXIS, Mesh, col_sharded, is_writer, mesh_from_config, replicated, row_sharded,
 )
@@ -375,6 +375,11 @@ class TrainScan:
       (``ops/cuda/launches``). ``captures`` lists (n_steps, seconds) of
       each capture; ``release()`` frees the graphs and their pools.
     - On the CPU: the loop of the update, the twin the tests use.
+
+    Spans (``runtime/logging.span``): the host's work of a replay (the
+    re-seeds, the lr copy, the replay, the counts), or the CPU's loop, is
+    ``train.replay``; a capture ``train.capture``, the eager first epoch
+    ``train.first_epoch``. None is opened while a graph captures.
     """
 
     def __init__(self, optimizer, hp, update):
@@ -390,12 +395,14 @@ class TrainScan:
             raise ValueError(f"train_scan: n_steps must be >= 1 (got {n_steps})")
         device = params.user_emb.device
         if device.type != "cuda":
-            for e in range(epoch0, epoch0 + n_steps):
-                loss = self._update(params, epoch_generator(seed, e, device), self._schedule(e),
-                                    *step_rest)
+            with span("train.replay"):
+                for e in range(epoch0, epoch0 + n_steps):
+                    loss = self._update(params, epoch_generator(seed, e, device),
+                                        self._schedule(e), *step_rest)
             return loss
         if self._stream is None:
-            loss = self._first_epoch(params, seed, epoch0, step_rest)
+            with span("train.first_epoch"):
+                loss = self._first_epoch(params, seed, epoch0, step_rest)
             epoch0, n_steps = epoch0 + 1, n_steps - 1
             if n_steps == 0:
                 return loss
@@ -404,11 +411,13 @@ class TrainScan:
             raise ValueError("train_scan: called on other tensors than its graph of "
                              f"{n_steps} epochs was captured on")
         epochs = range(epoch0, epoch0 + n_steps)
-        for g, e in zip(cap.generators, epochs):
-            g.manual_seed(epoch_seed(seed, e))
-        cap.lrs.copy_(torch.tensor([self._schedule(e) for e in epochs], dtype=cap.lrs.dtype))
-        cap.graph.replay()
-        add_replays(cap.tally)
+        with span("train.replay"):
+            for g, e in zip(cap.generators, epochs):
+                g.manual_seed(epoch_seed(seed, e))
+            cap.lrs.copy_(torch.tensor([self._schedule(e) for e in epochs],
+                                       dtype=cap.lrs.dtype))
+            cap.graph.replay()
+            add_replays(cap.tally)
         return cap.loss.clone()
 
     def _first_epoch(self, params, seed: int, epoch: int, step_rest):
@@ -431,15 +440,16 @@ class TrainScan:
     def _capture(self, params, n_steps: int, step_rest) -> _Captured:
         t0 = time.perf_counter()
         device = params.user_emb.device
-        generators = [torch.Generator(device=device) for _ in range(n_steps)]
-        lrs = torch.empty(n_steps, dtype=self._optimizer.param_groups[0]["lr"].dtype,
-                          device=device)
-        graph = torch.cuda.CUDAGraph()
-        for g in generators:
-            graph.register_generator_state(g)
-        with capture_tally() as tally, torch.cuda.graph(graph, stream=self._stream):
-            for k in range(n_steps):
-                loss = self._update(params, generators[k], lrs[k], *step_rest)
+        with span("train.capture"):
+            generators = [torch.Generator(device=device) for _ in range(n_steps)]
+            lrs = torch.empty(n_steps, dtype=self._optimizer.param_groups[0]["lr"].dtype,
+                              device=device)
+            graph = torch.cuda.CUDAGraph()
+            for g in generators:
+                graph.register_generator_state(g)
+            with capture_tally() as tally, torch.cuda.graph(graph, stream=self._stream):
+                for k in range(n_steps):
+                    loss = self._update(params, generators[k], lrs[k], *step_rest)
         cap = self._graphs[n_steps] = _Captured(
             graph, generators, lrs, loss, tally,
             [t.data_ptr() for t in _tensors((params, step_rest))])
@@ -597,7 +607,8 @@ def train_lightgcn(
     ``checkpoint_dir`` the full training state is saved after every epoch
     e > 0 with e % ``checkpoint_every`` == 0, and the run resumes after
     the newest checkpoint found there (``lgcnhs_tpu/train/trainer.py:
-    913-987,1027-1030``)."""
+    913-987,1027-1030``). Its set-up, up to the epoch loop, is a
+    ``train.setup`` span."""
     hp = cfg.hparams
     log = get_logger()
     device = resolve_device(device)
@@ -609,6 +620,9 @@ def train_lightgcn(
                              f"{device.type}")
         return train_lightgcn_on_mesh(graph, cfg, mesh, user_features, item_features,
                                       save_artifacts, checkpoint_dir, checkpoint_every)
+    # opened and closed by hand, so that the set-up keeps its indentation;
+    # an exception ends the range when the frame lets it go
+    setup = span("train.setup").__enter__()
     if cfg.compute.coo_table_sharding:
         raise ValueError(
             "compute.coo_table_sharding requires a resolved mesh (--mesh); "
@@ -746,6 +760,7 @@ def train_lightgcn(
     history: Dict[str, List[float]] = {name: [] for name in HISTORY_COLUMNS}
     if start_epoch > 0 and save_artifacts:
         _carry_history(cfg, model_name, history, start_epoch)
+    setup.__exit__(None, None, None)
     try:
         with stage_timer(f"{model_name} training done ({hp.epochs} epochs)", log):
             _train_epochs(
@@ -833,7 +848,10 @@ def _train_epochs(cfg: Config, log, history, device, start_epoch: int, step, val
     ``step(epoch, generator) -> loss`` an epoch on the epoch's own
     generator. At the boundary: ``checkpoint(epoch)``, then on eval epochs
     ``val_loss(generator)`` on its generator and ``evaluate()``, recorded
-    into ``history``."""
+    into ``history``. Each eager epoch is a ``train.step`` span, each
+    boundary's parts ``train.checkpoint``, ``train.val_loss``,
+    ``train.evaluate`` and ``train.record`` spans
+    (``runtime/logging.span``)."""
     hp = cfg.hparams
 
     def is_boundary(e: int) -> bool:
@@ -851,26 +869,35 @@ def _train_epochs(cfg: Config, log, history, device, start_epoch: int, step, val
                 loss = scan(e0, min(sub, last + 1 - e0))
         else:
             for e in range(epoch, last + 1):
-                loss = step(e, epoch_generator(hp.seed, e, device))
+                with span("train.step"):
+                    loss = step(e, epoch_generator(hp.seed, e, device))
         epoch = last
         if checkpoint_every and epoch and epoch % checkpoint_every == 0:
-            checkpoint(epoch)
+            with span("train.checkpoint"):
+                checkpoint(epoch)
         if epoch % hp.epoch_per_eval == 0:
-            vloss = val_loss(epoch_generator(hp.seed, hp.epochs + epoch, device))
-            _record_eval(history, epoch, loss, vloss, evaluate(), cfg, log)
+            with span("train.val_loss"):
+                vloss = val_loss(epoch_generator(hp.seed, hp.epochs + epoch, device))
+            with span("train.evaluate"):
+                metrics = evaluate()
+            _record_eval(history, epoch, loss, vloss, metrics, cfg, log)
+            del metrics  # device scalars, not to be held through the next interval
         epoch += 1
 
 
 def _record_eval(history, epoch, loss, vloss, metrics, cfg: Config, log) -> None:
     """One eval row: the losses and the five metrics rounded to 5
-    decimals, F1 of the rounded P and R, appended and logged."""
-    p, r, n, h, i = metrics
-    tl, vl = round(float(loss), 5), round(float(vloss), 5)
-    p, r, n = round(float(p), 5), round(float(r), 5), round(float(n), 5)
-    f1 = round(2 * p * r / (p + r), 5) if (p + r) else 0.0
-    h, i = round(float(h), 5), round(float(i), 5)
-    for name, v in zip(HISTORY_COLUMNS, (epoch, tl, vl, p, r, f1, n, h, i)):
-        history[name].append(v)
+    decimals, F1 of the rounded P and R, appended and logged. The reading
+    and appending is a ``train.record`` span; the log call, whose handlers
+    are the caller's, is not."""
+    with span("train.record"):
+        p, r, n, h, i = metrics
+        tl, vl = round(float(loss), 5), round(float(vloss), 5)
+        p, r, n = round(float(p), 5), round(float(r), 5), round(float(n), 5)
+        f1 = round(2 * p * r / (p + r), 5) if (p + r) else 0.0
+        h, i = round(float(h), 5), round(float(i), 5)
+        for name, v in zip(HISTORY_COLUMNS, (epoch, tl, vl, p, r, f1, n, h, i)):
+            history[name].append(v)
     log.info(
         "[Iteration %d/%d] train_loss: %s, val_loss: %s, val_precision@%d: %s, "
         "val_recall@%d: %s, val_f1@%d: %s, val_NDCG@%d: %s, val_H@%d: %s, "
