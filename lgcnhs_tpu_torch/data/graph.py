@@ -1,9 +1,10 @@
-"""Graph arrays, in numpy, and the bf16 incidence built on the device.
+"""Graph arrays, in numpy, and the dense matrices built on the device.
 
 Port of ``lgcnhs_tpu/data/graph.py``: interactions stay as flat (user,
 item) index arrays, and the dense U x I incidence is built once, vectorized
 (reference ``utils/trans.py:13-116``); the large-graph rung's bf16
-incidence is set on the device from the edges (``device_bf16_incidence``).
+incidence (``device_bf16_incidence``) and serving's A and seen
+(``dense_positives``) are set on the device from the edges.
 """
 from __future__ import annotations
 
@@ -90,6 +91,29 @@ def pos_bool_matrix(n_users: int, n_items: int, *edge_sets: EdgeSet) -> np.ndarr
     """Boolean positives matrix (reference uid -> [iid...] dicts,
     ``utils/trans.py:51-80``)."""
     return interaction_matrix(n_users, n_items, *edge_sets, dtype=np.bool_)
+
+
+def edge_array(*edge_sets: EdgeSet) -> np.ndarray:
+    """(2, n) int32 users and items of the given splits' rows, one after
+    the other: n = their rows together, 8 n bytes, written once."""
+    edges = np.empty((2, sum(es.n_edges for es in edge_sets)), dtype=np.int32)
+    np.concatenate([es.users for es in edge_sets], out=edges[0])
+    np.concatenate([es.items for es in edge_sets], out=edges[1])
+    return edges
+
+
+def dense_positives(n_users: int, n_items: int, edges: torch.Tensor):
+    """(A, seen) set on ``edges``' device from an ``edge_array``: the f32 0/1
+    ``interaction_matrix`` and the bool ``pos_bool_matrix`` of the same
+    rows, bit for bit. Each row's flat index u I + i is taken in int64 (U I
+    passes 2^31 at catalogs already served) and filled with 1 in a zeroed
+    A; a duplicate row fills the same 1 again. The ids are the graph's, in
+    range."""
+    A = torch.zeros((n_users, n_items), dtype=torch.float32, device=edges.device)
+    flat = edges[0].long() * n_items + edges[1]
+    A.view(-1).index_fill_(0, flat, 1.0)
+    del flat
+    return A, A != 0
 
 
 def item_degrees(n_items: int, *edge_sets: EdgeSet) -> np.ndarray:

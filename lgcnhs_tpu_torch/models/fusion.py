@@ -26,7 +26,9 @@ import numpy as np
 import torch
 
 from lgcnhs_tpu_torch.config import Config
-from lgcnhs_tpu_torch.data.graph import InteractionGraph, interaction_matrix, pos_bool_matrix
+from lgcnhs_tpu_torch.data.graph import (
+    InteractionGraph, dense_positives, edge_array, interaction_matrix, pos_bool_matrix,
+)
 from lgcnhs_tpu_torch.models.lightgcn import LightGCNParams, layer0_scores
 from lgcnhs_tpu_torch.ops.cuda.fusion_serve import fused_lgcnhs_serve, fused_lgcnhs_serve_ref
 from lgcnhs_tpu_torch.ops.cuda.launches import count
@@ -84,9 +86,13 @@ def serve_fused(
     device. Ties go to the lowest index; ``recommend_fused`` is the
     reference ranker beside it.
 
+    A and seen are set on the tables' device from the train+val rows
+    (``data/graph.dense_positives``); nothing is kept between calls.
+
     Each call is a ``serve.pass`` span (counted in ``serve_fused.passes``)
-    holding a ``serve.build`` and a ``serve.upload`` for A and for seen
-    (``serve_fused.h2d_bytes`` adds their bytes, 5 U I),
+    holding a ``serve.build`` of the (2, n) edge array on the host, a
+    ``serve.upload`` of it (``serve_fused.h2d_bytes`` adds its 8 n bytes,
+    n the train+val rows), a ``serve.build`` of A and seen on the device,
     ``serve.transfer_matrix`` (W), ``serve.rank`` (the launch, or the
     plain chain) and ``serve.download``, which waits for the card
     (``runtime/logging.span``)."""
@@ -98,13 +104,12 @@ def serve_fused(
         if device.type == "cuda":
             log.info("serve_fused: %s route (%s)", route,
                      str(params.user_emb.dtype).replace("torch.", ""))
-        U, I = graph.n_users, graph.n_items
         with span("serve.build"):
-            A = interaction_matrix(U, I, graph.train, graph.val)
-        A = _upload(A, device)
+            edges = edge_array(graph.train, graph.val)
+        edges = _upload(edges, device)
         with span("serve.build"):
-            seen = pos_bool_matrix(U, I, graph.train, graph.val)
-        seen = _upload(seen, device)
+            A, seen = dense_positives(graph.n_users, graph.n_items, edges)
+            del edges
         with span("serve.transfer_matrix"):
             W = hybrid_transfer(A, general_spreading_matrix(A), cfg.hparams.lambda_)
         ue, ie = params.user_emb, params.item_emb

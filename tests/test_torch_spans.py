@@ -3,10 +3,12 @@
 
 - With no profiler session, a span never enters ``record_function``.
 - Under a ``torch.profiler`` session, ``serve_fused`` (the plain route)
-  records one ``serve.pass`` holding two ``serve.build``, two
-  ``serve.upload`` and one each of ``serve.transfer_matrix``,
-  ``serve.rank`` and ``serve.download``; ``serve_fused.passes`` goes up by
-  one and ``serve_fused.h2d_bytes`` by 5 U I, with or without a session.
+  records one ``serve.pass`` holding two ``serve.build`` (the edge array
+  on the host, A and seen on the device), one ``serve.upload`` and one
+  each of ``serve.transfer_matrix``, ``serve.rank`` and
+  ``serve.download``; ``serve_fused.passes`` goes up by one and
+  ``serve_fused.h2d_bytes`` by 8 n, n the train+val rows, with or without
+  a session.
 - ``train_lightgcn`` records one ``train.setup``, a ``train.replay`` a
   chunk of the scan (the step's loop on the CPU), a ``train.step`` an
   eager epoch, and one
@@ -18,7 +20,7 @@
 - The benchmark still reads the program: the tiny training cell is
   ``correct`` (the frame reads of ``_record_eval`` and ``train_lightgcn``
   still work), and the tiny traced serving line reports the serving span
-  metrics, ``serve.h2d_mb_per_pass`` at 5 U I / 1e6.
+  metrics, ``serve.h2d_mb_per_pass`` at 8 n / 1e6.
 """
 import json
 import logging
@@ -37,7 +39,7 @@ from lgcnhs_tpu_torch.runtime.logging import profile_trace, span, stage_timer
 from lgcnhs_tpu_torch.train import trainer as ttrainer
 
 U, I, D = 30, 45, 8
-SERVE_CHILDREN = {"serve.build": 2, "serve.upload": 2, "serve.transfer_matrix": 1,
+SERVE_CHILDREN = {"serve.build": 2, "serve.upload": 1, "serve.transfer_matrix": 1,
                   "serve.rank": 1, "serve.download": 1}
 
 
@@ -128,8 +130,8 @@ def test_serve_fused_spans_and_counters():
     before = (serve_fused.passes, serve_fused.h2d_bytes)
     rec, events = _profiled(lambda: serve_fused(graph, cfg, params))
     np.testing.assert_array_equal(rec, plain)
-    assert (serve_fused.passes, serve_fused.h2d_bytes) == (before[0] + 1,
-                                                           before[1] + 5 * U * I)
+    rows = graph.train.n_edges + graph.val.n_edges
+    assert (serve_fused.passes, serve_fused.h2d_bytes) == (before[0] + 1, before[1] + 8 * rows)
     passes = [ev for ev in events if ev.name == "serve.pass"]
     assert len(passes) == 1
     children = Counter(ev.name for ev in events if ev.name != "serve.pass")
@@ -237,16 +239,16 @@ def test_the_benchmark_still_reads_the_program(monkeypatch):
     line = tiny.run("ml1m-train", seconds=4.0)
     assert line["correct"] is True, line["checks"]
 
-    seen = []
-    check = serve_driver.check
-    monkeypatch.setattr(serve_driver, "check", lambda o, d: seen.append(o) or check(o, d))
+    graphs = []
+    program_graph = serve_driver.problem.program_graph
+    monkeypatch.setattr(serve_driver.problem, "program_graph",
+                        lambda *a: graphs.append(program_graph(*a)) or graphs[-1])
     line = tiny.run("ml1m-serve", trace=True)
     assert line["correct"] is True, line["checks"]
     metrics = line["metrics"]
     assert {"serve.build_share", "serve.upload_share", "serve.h2d_mb_per_pass"} <= set(metrics)
-    (outcome,) = seen
-    n_users, n_items = outcome.tables[0].shape[0], outcome.tables[1].shape[0]
-    assert metrics["serve.h2d_mb_per_pass"]["value"] == pytest.approx(
-        5 * n_users * n_items / 1e6, rel=1e-12)
+    ((_, graph),) = graphs
+    rows = graph.train.n_edges + graph.val.n_edges
+    assert metrics["serve.h2d_mb_per_pass"]["value"] == pytest.approx(8 * rows / 1e6, rel=1e-12)
     for name in ("serve.build_share", "serve.upload_share"):
         assert 0 < metrics[name]["value"] < 100
