@@ -248,7 +248,7 @@ neither JAX nor ``lgcnhs_tpu``. Phases:
    (``runtime/mesh.py:86``), so no NCCL rendezvous runs here, and one card
    cannot host two NCCL ranks; two ranks started by torchrun and by a
    ``tcp://`` address are held on gloo by ``tests/test_torch_multihost.py``.
-14. The trainer's CUDA graphs (``graph_phase``, last; a 40 s budget, its
+14. The trainer's CUDA graphs (``graph_phase``; a 40 s budget, its
    time printed). Since this slice every ``train_lightgcn`` above runs the
    epochs between its boundaries through ``train/trainer.TrainScan``
    (captured graphs, replayed), and their checks stand unchanged. Here:
@@ -270,6 +270,16 @@ neither JAX nor ``lgcnhs_tpu``. Phases:
    turns, each route's peak memory and the capture's seconds, beside
    phase 12's device-busy ms a step of both routes (the bench traces each
    in its own process's first minute of profiling).
+15. Serving's kernel operands built from the edges (``serve_blocks_phase``,
+   last; a 45 s budget, its time printed), at 6,040 x 20,000 (five blocks
+   of W^T's rows): ``models/fusion.kernel_operands`` against the dense
+   build's split (``fused_lgcnhs_serve``'s ``serve_operands`` on the f32 A
+   and the dense W): A's part and seen bit for bit, W^T's parts equal
+   wherever the two W agree and within ``BLOCK_W_REL_TOL`` of it
+   elsewhere; kernel 4's lists through ``serve_fused`` tie-equivalent to
+   the dense build's under f64 scores; one split launch and one counted
+   block a block; ``serve_fused``'s peak memory below the dense build's;
+   the W build's seconds on both (CUDA events).
 
 Prints one PASS/FAIL line per check, then (all passed) the kernel JSON line,
 the ``nvidia-smi`` name/power-limit line, and the final
@@ -415,6 +425,13 @@ W2V_STORY_DOCS = 300  # the CPU side of the storyline check trains on these
 # by the default one), so their tables stay within GRAPH_TABLE_REL_TOL of
 # scale; the timing row over GRAPH_TIMING_EPOCHS epochs a chunk
 GRAPH_BUDGET_S = 40
+# phase 15, serving's block-built operands: its budget (printed), its size,
+# and how far the block-built W may sit from the dense one (another sum
+# order and scaling by reciprocals: a few f32 roundings of sums whose
+# terms are all positive)
+SERVE_BLOCKS_BUDGET_S = 45
+SERVE_BLOCKS_SHAPE = (6040, 20_000, 600_000)  # users, items, train+val rows
+BLOCK_W_REL_TOL = 1e-5
 GRAPH_TABLE_REL_TOL = 1e-5
 GRAPH_COO_EPOCHS = 5
 GRAPH_TIMING_EPOCHS = 200
@@ -2275,6 +2292,110 @@ def ingestion_phase(check, dev, smi, clock):
     return out
 
 
+def serve_blocks_phase(check, dev, smi):
+    """Phase 15 (module docstring): the block-built kernel operands against
+    the dense build's at 6,040 x 20,000. Returns its row."""
+    import numpy as np
+    import torch
+
+    from lgcnhs_tpu_torch import config as tcfg
+    from lgcnhs_tpu_torch.data import graph as tg
+    from lgcnhs_tpu_torch.models import fusion
+    from lgcnhs_tpu_torch.models.lightgcn import LightGCNParams
+    from lgcnhs_tpu_torch.ops.cuda import fusion_serve as fs
+    from lgcnhs_tpu_torch.ops.diffusion import general_spreading_matrix, hybrid_transfer
+
+    U, I, n = SERVE_BLOCKS_SHAPE
+    k, lam = K_SLICE, 0.6
+    rng = np.random.default_rng(15)
+    pop = 1.0 / np.arange(1, I + 1) ** 0.9
+    users = rng.integers(0, U, n).astype(np.int32)
+    items = rng.choice(I, n, p=pop / pop.sum()).astype(np.int32)
+    cut = n * 9 // 10 - 5000  # the val rows repeat 5,000 train rows
+    train = tg.EdgeSet(users[:cut + 5000], items[:cut + 5000])
+    val = tg.EdgeSet(users[cut:], items[cut:])
+    graph = tg.InteractionGraph(U, I, tg.EdgeSet(users, items), train, val,
+                                tg.EdgeSet(users[:0], items[:0]))
+    gen = torch.Generator(device=dev).manual_seed(15)
+    ue = 0.1 * torch.randn(U, 64, generator=gen, device=dev)
+    ie = 0.1 * torch.randn(I, 64, generator=gen, device=dev)
+    cfg = tcfg.load_config(dataset="synthetic", model="SpreadLightGCNOpti",
+                           overrides={"k": k, "hparams.lambda_": lam})
+    blocks = -(-I // fusion.W_BLOCK)
+
+    def peak_of(fn):
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        out = fn()
+        torch.cuda.synchronize(dev)
+        return out, torch.cuda.max_memory_allocated(dev) - base
+
+    def timed(fn):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        out = fn()
+        end.record()
+        end.synchronize()
+        return out, start.elapsed_time(end) / 1e3
+
+    fusion.serve_fused(graph, cfg, LightGCNParams(ue, ie))  # builds and loads the kernels
+    b0, s0 = fusion.serve_fused.w_blocks, fs.fused_lgcnhs_serve.split_launches
+    rec_blocks, peak_blocks = peak_of(lambda: fusion.serve_fused(graph, cfg,
+                                                                 LightGCNParams(ue, ie)))
+    counted = (fusion.serve_fused.w_blocks - b0, fs.fused_lgcnhs_serve.split_launches - s0)
+    check(f"phase 15: one split launch and one counted block a block of {fusion.W_BLOCK} "
+          f"items ({blocks} at {I})", counted == (blocks, blocks), f"{counted}")
+
+    edges = torch.from_numpy(tg.edge_array(train, val)).to(dev)
+
+    def dense_serve():
+        A, seen = tg.dense_positives(U, I, edges)
+        W = hybrid_transfer(A, general_spreading_matrix(A), lam)
+        return fs.fused_lgcnhs_serve(ue, ie, A, W, seen, k)[0]
+
+    idx_dense, peak_dense = peak_of(dense_serve)
+    check("phase 15: serve_fused's peak memory below the dense build's",
+          peak_blocks < peak_dense,
+          f"{peak_blocks / 2**30:.4f} GiB against {peak_dense / 2**30:.4f} GiB")
+
+    (a_parts, w_parts, seen), block_s = timed(
+        lambda: fusion.kernel_operands(U, I, edges, lam))
+    (A, seen_dense), _ = timed(lambda: tg.dense_positives(U, I, edges))
+    W, dense_s = timed(lambda: hybrid_transfer(A, general_spreading_matrix(A), lam))
+    whole = fs.serve_operands(ue, ie, A, W)
+    check("phase 15: A's part and seen from the edges equal the dense build's bit for bit",
+          torch.equal(a_parts.view(torch.int16), whole.a_parts.view(torch.int16))
+          and torch.equal(seen, seen_dense))
+    got_w, want_w = w_parts.float().sum(0), whole.w_parts.float().sum(0)
+    same = got_w == want_w
+    parts_same = (w_parts == whole.w_parts).all(0)
+    rel = ((got_w - want_w).abs() / want_w.abs().clamp_min(1e-30)).max().item()
+    check("phase 15: W^T's block-built parts equal the whole-W split where the two W agree, "
+          f"and sit within {BLOCK_W_REL_TOL:g} of it elsewhere",
+          torch.equal(same, parts_same) and rel <= BLOCK_W_REL_TOL
+          and torch.equal(got_w == 0, want_w == 0),
+          f"{same.double().mean().item():.6f} of the entries equal, max relative gap "
+          f"{rel:.3e}")
+    del got_w, want_w, same, parts_same, whole, a_parts, w_parts
+    f = torch.zeros((U, I), dtype=torch.float64, device=dev)
+    step = max(1, (1 << 28) // I)
+    for l0 in range(0, I, step):
+        f += A[:, l0:l0 + step].double() @ W[l0:l0 + step].double()
+    f *= ue.double() @ ie.double().T
+    ref = f.masked_fill_(seen_dense, fs.EXCLUDED)
+    agreement, gap = tie_equivalence(torch, idx_dense, torch.from_numpy(rec_blocks).to(dev), ref)
+    check("phase 15: kernel 4's lists on the block-built operands (serve_fused) "
+          "tie-equivalent to its lists on the dense build's",
+          agreement >= AGREEMENT_MIN and gap <= GAP_MAX,
+          f"agreement {agreement:.6f}, max relative gap {gap:.3e}")
+    return {"shape": [U, I, int(edges.shape[1])], "blocks": blocks,
+            "w_build_s": {"blocks": block_s, "dense": dense_s},
+            "peak_gib": {"blocks": peak_blocks / 2**30, "dense": peak_dense / 2**30},
+            "agreement": agreement, "max_rel_w_gap": rel, "smi": smi}
+
+
 def trace_summary(trace_dir):
     """(trace files, events, events by category, card kernel names, MB) of a
     ``--profile`` directory; events only when it holds one file."""
@@ -2964,6 +3085,7 @@ def main() -> int:
             build_graph, interaction_matrix, pos_bool_matrix, unique_edges,
         )
         from lgcnhs_tpu_torch.eval import metrics as tev
+        from lgcnhs_tpu_torch.models import fusion
         from lgcnhs_tpu_torch.models.fusion import allocate_matrix
         from lgcnhs_tpu_torch.models.lightgcn import (
             LightGCNParams, init_lightgcn, init_lightgcn_opti,
@@ -3365,6 +3487,7 @@ def main() -> int:
         fn.launches = 0
         fn.merge_launches = 0
     fs.fused_lgcnhs_serve.split_launches = 0
+    fusion.serve_fused.w_blocks = 0
     outputs, run_launches = [], []
     for model, args, k in runs:
         t0 = time.perf_counter()
@@ -3384,10 +3507,15 @@ def main() -> int:
         check(f"main path launched {name}", n > 0, f"{n} launches")
     check("main path launched the retrieval kernel's merge over its catalog parts with each "
           "call", merges["fused_topk_retrieval"] == launches["fused_topk_retrieval"], f"{merges}")
-    check("main path launched the fused serve's merge and its bf16 split with each call",
+    # serve_fused builds W^T's parts itself: one split a block of fusion.W_BLOCK items
+    w_blocks = sum(-(-cells[(model, args[1], k)][1].n_items // fusion.W_BLOCK)
+                   for model, args, k in runs if model == "SpreadLightGCNOpti")
+    check("main path launched the fused serve's merge with each call and its bf16 split "
+          "with each block of W^T's rows",
           merges["fused_lgcnhs_serve"] == launches["fused_lgcnhs_serve"]
-          and serve_splits == 2 * launches["fused_lgcnhs_serve"],
-          f"{merges['fused_lgcnhs_serve']} merges, {serve_splits} splits")
+          and serve_splits == fusion.serve_fused.w_blocks == w_blocks,
+          f"{merges['fused_lgcnhs_serve']} merges, {serve_splits} splits, "
+          f"{fusion.serve_fused.w_blocks} blocks counted, {w_blocks} expected")
     for (model, args, k), n in zip(runs, run_launches):
         want = "fused_lgcnhs_serve" if model == "SpreadLightGCNOpti" else "fused_topk_retrieval"
         check(f"cli/retrieve {model} {args[1]} k={k} served through {want} alone",
@@ -4154,6 +4282,14 @@ def main() -> int:
         print(f"[phase 14] row {json.dumps(phase14['row'])}", flush=True)
         for row in report:
             row["phase14_launches"] = phase14["launches"].get(row["name"], 0)
+
+    # -- 15. serving's kernel operands built from the edges ----------------------
+    print(f"[phase 15] block-built serving operands on {smi}", flush=True)
+    t0 = time.perf_counter()
+    phase15 = check.guard("phase 15", serve_blocks_phase, check, dev, smi)
+    if phase15:
+        print(f"[phase 15] {time.perf_counter() - t0:.1f} s (budget {SERVE_BLOCKS_BUDGET_S} s); "
+              f"row {json.dumps(phase15)}", flush=True)
 
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
     if check.failures:

@@ -28,12 +28,16 @@ import torch
 from lgcnhs_tpu_torch.config import Config
 from lgcnhs_tpu_torch.data.graph import (
     InteractionGraph, dense_positives, edge_array, interaction_matrix, pos_bool_matrix,
+    positive_parts,
 )
 from lgcnhs_tpu_torch.models.lightgcn import LightGCNParams, layer0_scores
-from lgcnhs_tpu_torch.ops.cuda.fusion_serve import fused_lgcnhs_serve, fused_lgcnhs_serve_ref
+from lgcnhs_tpu_torch.ops.cuda.fusion_serve import (
+    W_PARTS, fused_lgcnhs_serve_ref, fused_serve_parts, parts_ld, split_rows_into,
+)
 from lgcnhs_tpu_torch.ops.cuda.launches import count
 from lgcnhs_tpu_torch.ops.diffusion import (
-    diffusion_scores_auto, general_spreading_matrix, hybrid_resource, hybrid_transfer,
+    diffusion_scores_auto, edge_spreading, general_spreading_matrix, hybrid_resource,
+    hybrid_transfer, transfer_block,
 )
 from lgcnhs_tpu_torch.ops.topk import MASK_VALUE, rank_exclude_seen_topk
 from lgcnhs_tpu_torch.parallel.sharding import (
@@ -86,16 +90,21 @@ def serve_fused(
     device. Ties go to the lowest index; ``recommend_fused`` is the
     reference ranker beside it.
 
-    A and seen are set on the tables' device from the train+val rows
-    (``data/graph.dense_positives``); nothing is kept between calls.
+    Everything is set on the tables' device from the train+val rows, and
+    nothing is kept between calls. The kernel route builds the kernel's
+    operands themselves (``kernel_operands``): A's bf16 part and seen from
+    the edges, W^T's bf16 parts a block of items at a time, with no (I, I)
+    or (U, I) f32 array. The plain route sets the f32 A and seen
+    (``data/graph.dense_positives``) and the dense W.
 
     Each call is a ``serve.pass`` span (counted in ``serve_fused.passes``)
     holding a ``serve.build`` of the (2, n) edge array on the host, a
     ``serve.upload`` of it (``serve_fused.h2d_bytes`` adds its 8 n bytes,
     n the train+val rows), a ``serve.build`` of A and seen on the device,
-    ``serve.transfer_matrix`` (W), ``serve.rank`` (the launch, or the
-    plain chain) and ``serve.download``, which waits for the card
-    (``runtime/logging.span``)."""
+    ``serve.transfer_matrix`` (W; on the kernel route one ``serve.w_block``
+    a block, counted in ``serve_fused.w_blocks``), ``serve.rank`` (the
+    launch, or the plain chain) and ``serve.download``, which waits for the
+    card (``runtime/logging.span``)."""
     device = params.user_emb.device
     log = get_logger()
     count(_COUNTERS, "passes")
@@ -107,24 +116,59 @@ def serve_fused(
         with span("serve.build"):
             edges = edge_array(graph.train, graph.val)
         edges = _upload(edges, device)
-        with span("serve.build"):
-            A, seen = dense_positives(graph.n_users, graph.n_items, edges)
-            del edges
-        with span("serve.transfer_matrix"):
-            W = hybrid_transfer(A, general_spreading_matrix(A), cfg.hparams.lambda_)
         ue, ie = params.user_emb, params.item_emb
-        with span("serve.rank"):
-            if route == "plain":
+        if route == "plain":
+            with span("serve.build"):
+                A, seen = dense_positives(graph.n_users, graph.n_items, edges)
+                del edges
+            with span("serve.transfer_matrix"):
+                W = hybrid_transfer(A, general_spreading_matrix(A), cfg.hparams.lambda_)
+            with span("serve.rank"):
                 rec = _serve_unfused(ue, ie, A, W, seen, cfg.k)
-            else:
-                rec = fused_lgcnhs_serve(ue, ie, A, W, seen, cfg.k)[0]
+        else:
+            a_parts, w_parts, seen = kernel_operands(graph.n_users, graph.n_items, edges,
+                                                     cfg.hparams.lambda_, W_BLOCK)
+            del edges
+            with span("serve.rank"):
+                rec = fused_serve_parts(ue, ie, a_parts, w_parts, seen, cfg.k)[0]
         with span("serve.download"):
             return rec.cpu().numpy()
 
 
 serve_fused.passes = 0  # calls
 serve_fused.h2d_bytes = 0  # bytes of the host arrays the calls handed to .to(device)
+serve_fused.w_blocks = 0  # blocks of W^T's parts built (kernel route)
 _COUNTERS = serve_fused  # their owner, also where a caller wraps the module's name
+
+# Items a block of W^T's rows: ML-1M's catalog is one block, Gowalla's ten;
+# a block's (I, b) f32 product stays near 1.5 GB at 91,599 items.
+W_BLOCK = 4096
+
+
+def kernel_operands(n_users: int, n_items: int, edges: torch.Tensor, lam,
+                    block: int = W_BLOCK):
+    """(a_parts, w_parts, seen) for ``fused_serve_parts`` from the (2, n)
+    train+val edge array on the device: A's one bf16 part and seen
+    (``data/graph.positive_parts``, a ``serve.build``), then, in
+    ``serve.transfer_matrix``, W's factors (``ops/diffusion.edge_spreading``)
+    and W^T's three bf16 parts, (3, I, ld), one ``serve.w_block`` per
+    ``block`` items j: W[:, j] from A's columns (``transfer_block``, one
+    sparse product) split into rows j of the parts (``split_rows_into``).
+    Live at once: the parts, seen and one block's (U, b) and (I, b) f32."""
+    ld = parts_ld(n_items)
+    with span("serve.build"):
+        a_parts, seen = positive_parts(n_users, n_items, ld, edges)
+    with span("serve.transfer_matrix"):
+        spread = edge_spreading(n_users, n_items, edges, lam)
+        w_parts = torch.empty((W_PARTS, n_items, ld), dtype=torch.bfloat16, device=edges.device)
+        for j0 in range(0, n_items, block):
+            with span("serve.w_block"):
+                count(_COUNTERS, "w_blocks")
+                j1 = min(j0 + block, n_items)
+                W_cols = transfer_block(spread, a_parts[0, :, j0:j1], j0)
+                split_rows_into(W_cols, w_parts[:, j0:j1])
+                del W_cols
+    return a_parts, w_parts, seen
 
 
 def _upload(host: np.ndarray, device: torch.device) -> torch.Tensor:

@@ -48,7 +48,9 @@
 //    Seen items score -3e38 (their flags are loaded when the tile starts)
 //    and stay candidates, so a user with fewer than k unseen items gets its
 //    seen items, lowest id first.
-// The wrapper splits A and W^T with bf16_parts_kernel, one pass each.
+// The wrapper splits A and W^T with bf16_parts_kernel, one pass each;
+// serving sets A's one part from its edges and splits W^T a block of
+// rows at a time into the parts buffer (models/fusion.serve_fused).
 // No array grows with I: the running lists (k entries a user) sit in
 // shared memory as far as they fit and in a device-memory workspace past
 // that (LongLists), so every catalog size and every k runs. The catalog
@@ -465,17 +467,17 @@ __device__ __forceinline__ void split_entry(float v, int n, size_t part, __nv_bf
 }
 
 // x (rows, cols) f32 as n bf16 parts (ops/cuda/fusion_serve.py bf16_parts
-// is the plain version): of x, (n, rows, ld), entries past column cols
-// zero, a block a row at a time, with n = 1 flagging an x not exact in
-// bf16 in *inexact (when not null); or of x^T (kT), (n, cols, ld), entries
-// past column rows zero, through 32 x 32 tiles in shared memory so that
-// reads and writes are both coalesced. One pass.
+// is the plain version), part p starting at out + p * part: of x, rows of
+// ld entries, entries past column cols zero, a block a row at a time, with
+// n = 1 flagging an x not exact in bf16 in *inexact (when not null); or of
+// x^T (kT), cols rows of ld entries, entries past column rows zero, through
+// 32 x 32 tiles in shared memory so that reads and writes are both
+// coalesced. One pass.
 template <bool kT>
 __global__ void __launch_bounds__(kThreads)
     bf16_parts_kernel(const float* __restrict__ x, int rows, int cols, int ld, int n,
-                      __nv_bfloat16* __restrict__ out, int* __restrict__ inexact) {
+                      size_t part, __nv_bfloat16* __restrict__ out, int* __restrict__ inexact) {
   if constexpr (!kT) {
-    const size_t part = (size_t)rows * ld;
     for (int r = blockIdx.x; r < rows; r += gridDim.x)
       for (int c = threadIdx.x; c < ld; c += kThreads)
         split_entry(c < cols ? x[(size_t)r * cols + c] : 0.0f, n, part,
@@ -483,7 +485,6 @@ __global__ void __launch_bounds__(kThreads)
   } else {
     __shared__ float tile[32][33];
     const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
-    const size_t part = (size_t)cols * ld;
     const int tr = (ld + 31) / 32, tc = (cols + 31) / 32;
     for (long long b = blockIdx.x; b < (long long)tr * tc; b += gridDim.x) {
       const int r0 = (int)(b % tr) * 32, c0 = (int)(b / tr) * 32;
@@ -557,22 +558,26 @@ extern "C" int fused_lgcnhs_serve_launch(const float* uT, int ldu, const float* 
   return lgcnhs_launch_part_merge(part_idx, part_val, U, k, parts, smem_limit, idx, vals, stream);
 }
 
-// x (rows, cols) f32, contiguous, into out: n bf16 parts of x, (n, rows,
-// ld) with ld >= cols, or with transpose of x^T, (n, cols, ld) with
-// ld >= rows (bf16_parts_kernel). n 1 or 3. inexact: null, or (n = 1, no
-// transpose) one int on the device, set to 1 where x is not exact in bf16
-// and left as it was otherwise.
+// x (rows, cols) f32, contiguous, into out: n bf16 parts of x, rows of ld
+// >= cols entries, or with transpose of x^T, cols rows of ld >= rows
+// entries (bf16_parts_kernel); part p starts at out + p * part, part at
+// least the rows written times ld (more where out holds rows of a larger
+// matrix's parts: a block of its rows is written, the rest left as it
+// is). n 1 or 3. inexact: null, or (n = 1, no transpose) one int on the
+// device, set to 1 where x is not exact in bf16 and left as it was
+// otherwise.
 extern "C" int bf16_parts_launch(const float* x, int rows, int cols, int ld, int n,
-                                 int transpose, void* out, int* inexact, void* stream) {
+                                 int transpose, long long part, void* out, int* inexact,
+                                 void* stream) {
   if (rows < 1 || cols < 1 || ld < (transpose ? rows : cols) || (n != 1 && n != 3) ||
-      (inexact && (n != 1 || transpose)))
+      part < (long long)(transpose ? cols : rows) * ld || (inexact && (n != 1 || transpose)))
     return (int)cudaErrorInvalidValue;
   auto* o = static_cast<__nv_bfloat16*>(out);
   if (transpose)
-    return lgcnhs_launch(bf16_parts_kernel<true>, 4096, 0, stream, x, rows, cols, ld, n, o,
-                         static_cast<int*>(nullptr));
+    return lgcnhs_launch(bf16_parts_kernel<true>, 4096, 0, stream, x, rows, cols, ld, n,
+                         (size_t)part, o, static_cast<int*>(nullptr));
   return lgcnhs_launch(bf16_parts_kernel<false>, rows < 4096 ? rows : 4096, 0, stream, x, rows,
-                       cols, ld, n, o, inexact);
+                       cols, ld, n, (size_t)part, o, inexact);
 }
 
 // Shared memory of one block at k with na parts of A, its long lists

@@ -21,9 +21,10 @@ the kernel or raises. ``fused_lgcnhs_serve.launches`` counts the calls that
 launched the kernel, ``fused_lgcnhs_serve.merge_launches`` those that also
 launched its second kernel, the merge of the catalog parts, and
 ``fused_lgcnhs_serve.split_launches`` the launches of the kernel that splits
-A and W into bf16 parts (two a call, three when A is not exact in bf16);
-a launch captured into a CUDA graph counts at each replay
-(``ops/cuda/launches``).
+A and W into bf16 parts (two a call, three when A is not exact in bf16;
+one a block of W^T's rows where serving builds the parts itself,
+``fused_serve_parts``); a launch captured into a CUDA graph counts at each
+replay (``ops/cuda/launches``).
 """
 from __future__ import annotations
 
@@ -83,17 +84,31 @@ def bf16_parts(x: torch.Tensor, n: int, ld: int) -> torch.Tensor:
     remainder), so their sum is x exactly for normal floats; n = 1 is x
     rounded to bf16, exact only where x is. Made in row blocks, so the f32
     temporaries stay near 256 MB whatever x's size."""
+    out = torch.empty((n, x.shape[0], ld), dtype=torch.bfloat16, device=x.device)
+    bf16_parts_into(x, out)
+    return out
+
+
+def bf16_parts_into(x: torch.Tensor, out: torch.Tensor) -> None:
+    """``bf16_parts(x, n, ld)`` written into ``out``, (n, rows, ld), which
+    may be a block of rows of a larger parts buffer."""
     rows, cols = x.shape
-    out = torch.zeros((n, rows, ld), dtype=torch.bfloat16, device=x.device)
+    out[:, :, cols:] = 0
     step = max(1, (1 << 26) // max(cols, 1))
     for r0 in range(0, rows, step):
         rest = x[r0:r0 + step].float().contiguous()
-        for p in range(n - 1):
+        for p in range(out.shape[0] - 1):
             part = (rest.view(torch.int32) & -65536).view(torch.float32)
             out[p, r0:r0 + step, :cols] = part  # exact: 8 significand bits
             rest = rest - part  # exact: the bits below them
-        out[n - 1, r0:r0 + step, :cols] = rest
-    return out
+        out[-1, r0:r0 + step, :cols] = rest
+
+
+def parts_ld(n_items: int) -> int:
+    """The row stride of the kernel's bf16 parts: I rounded up to 64
+    entries, so rows start on 128-byte lines and no 64-byte chunk
+    straddles two."""
+    return n_items + (-n_items % 64)
 
 
 class ServeOperands(NamedTuple):
@@ -113,8 +128,7 @@ def serve_operands(user_emb, item_emb, A, W) -> ServeOperands:
     (``fused_lgcnhs_serve.split_launches`` counts its launches), which
     flags an A that one part does not hold; one int is read back, and only
     such an A is split again. Else ``bf16_parts``."""
-    I = W.shape[0]
-    ld = I + (-I % 64)  # rows start on 128-byte lines, so no 64-byte chunk straddles two
+    ld = parts_ld(W.shape[0])
     if A.device.type == "cpu":
         a_exact = bool((A.to(torch.bfloat16).float() == A).all())
         a_parts = bf16_parts(A, 1 if a_exact else 3, ld)
@@ -129,23 +143,40 @@ def serve_operands(user_emb, item_emb, A, W) -> ServeOperands:
 
 
 def split_on_card(x: torch.Tensor, n: int, ld: int, transpose: bool = False,
-                  inexact: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  inexact: Optional[torch.Tensor] = None,
+                  out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``bf16_parts(x.T if transpose else x, n, ld)`` by the library's
     kernel, in one pass over x. With n = 1 and ``inexact`` (one int32 on
     the card, zero), the kernel sets it to 1 where an entry is not exact
-    in bf16."""
+    in bf16. With ``out``, (n, rows, ld) with unit column and ld row
+    strides (a block of rows of a larger parts buffer), the parts are
+    written there."""
     rows, cols = x.shape
     x = x.contiguous()
-    out = torch.empty((n, cols if transpose else rows, ld), dtype=torch.bfloat16,
-                      device=x.device)
+    if out is None:
+        out = torch.empty((n, cols if transpose else rows, ld), dtype=torch.bfloat16,
+                          device=x.device)
+    if out.shape != (n, cols if transpose else rows, ld) or out.stride()[1:] != (ld, 1):
+        raise ValueError(f"split_on_card: out {tuple(out.shape)}, strides {out.stride()}")
     lib, _ = _launcher()
     with torch.cuda.device(x.device):
         rc = lib.bf16_parts_launch(x.data_ptr(), rows, cols, ld, n, int(transpose),
-                                   out.data_ptr(), None if inexact is None else inexact.data_ptr(),
+                                   out.stride(0), out.data_ptr(),
+                                   None if inexact is None else inexact.data_ptr(),
                                    torch.cuda.current_stream().cuda_stream)
     build.check_launch(lib, rc, "bf16_parts")
     count_launch(fused_lgcnhs_serve, "split_launches")
     return out
+
+
+def split_rows_into(x: torch.Tensor, out: torch.Tensor) -> None:
+    """The three bf16 parts of x^T, x (rows, b) f32, into ``out`` (3, b,
+    ld), a block of rows of a parts buffer: on the card by
+    ``split_on_card``'s transposing pass, else ``bf16_parts_into``."""
+    if x.device.type == "cuda":
+        split_on_card(x, W_PARTS, out.shape[2], transpose=True, out=out)
+    else:
+        bf16_parts_into(x.T, out)
 
 
 def serve_block_bytes(k: int, a_parts: int, smem_limit: int) -> Tuple[int, int]:
@@ -223,7 +254,42 @@ def fused_lgcnhs_serve(
             raise ValueError(f"fused_lgcnhs_serve: {name} is on {t.device}, user_emb on {dev}")
         if name != "seen" and t.dtype != torch.float32:
             raise TypeError(f"fused_lgcnhs_serve: {name} must be float32, got {t.dtype}")
-    ops = serve_operands(user_emb, item_emb, A, W)
+    return _launch_counted(serve_operands(user_emb, item_emb, A, W), seen, k)
+
+
+def fused_serve_parts(
+    user_emb: torch.Tensor,  # (U, D) f32 layer-0 user table
+    item_emb: torch.Tensor,  # (I, D) f32 layer-0 item table
+    a_parts: torch.Tensor,  # (1 or 3, U, ld) bf16 parts of A, zero past column I
+    w_parts: torch.Tensor,  # (3, I, ld) bf16 parts of W^T, zero past column I
+    seen: torch.Tensor,  # (U, I) bool
+    k: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``fused_lgcnhs_serve`` on A and W given as their bf16 parts (the
+    serving path builds them from the edges, ``models/fusion``), counted
+    as its launches. Given CPU tensors, the twin on the parts' sums."""
+    I = item_emb.shape[0]
+    if seen.dtype != torch.bool or tuple(seen.shape) != (user_emb.shape[0], I) \
+            or not 1 <= k <= I:
+        raise ValueError(f"fused_serve_parts: seen {tuple(seen.shape)} {seen.dtype}, k {k}")
+    if user_emb.device.type == "cpu":
+        A = a_parts.float().sum(0)[:, :I]
+        W = w_parts.float().sum(0)[:, :I].T
+        return fused_lgcnhs_serve_ref(user_emb, item_emb, A, W, seen, k)
+    for name, t in (("user_emb", user_emb), ("item_emb", item_emb)):
+        if t.dtype != torch.float32:
+            raise TypeError(f"fused_serve_parts: {name} must be float32, got {t.dtype}")
+    ld = parts_ld(I)
+    if (a_parts.shape[1:] != (user_emb.shape[0], ld) or w_parts.shape != (W_PARTS, I, ld)
+            or a_parts.dtype != torch.bfloat16 or w_parts.dtype != torch.bfloat16):
+        raise ValueError(f"fused_serve_parts: a_parts {tuple(a_parts.shape)} {a_parts.dtype}, "
+                         f"w_parts {tuple(w_parts.shape)} {w_parts.dtype}, I {I}")
+    ops = ServeOperands(_padded_t(user_emb), _padded_t(item_emb), a_parts, w_parts)
+    return _launch_counted(ops, seen, k)
+
+
+def _launch_counted(ops: ServeOperands, seen: torch.Tensor,
+                    k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     lib, fn = _launcher()
     idx, vals, parts = launch_kernel(lib, fn, ops, seen, k)
     count_launch(fused_lgcnhs_serve)
@@ -275,7 +341,7 @@ def bind(lib: ctypes.CDLL):
         getattr(lib, name).restype = ctypes.c_longlong
     lib.fused_serve_resident_blocks.argtypes = [_INT] * 3
     lib.fused_serve_resident_blocks.restype = _INT
-    lib.bf16_parts_launch.argtypes = [_PTR] + [_INT] * 5 + [_PTR] * 3
+    lib.bf16_parts_launch.argtypes = [_PTR] + [_INT] * 5 + [ctypes.c_longlong] + [_PTR] * 3
     lib.bf16_parts_launch.restype = _INT
     fn = lib.fused_lgcnhs_serve_launch
     fn.argtypes = ([_PTR, _INT, _PTR, _INT, _PTR, _INT, _INT, _PTR, _INT, _PTR]

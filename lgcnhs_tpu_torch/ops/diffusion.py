@@ -18,6 +18,8 @@ so HybridS(l=0/1) degenerates to HeatS/ProbS.
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 
@@ -66,6 +68,52 @@ def hybrid_transfer(A: torch.Tensor, W_gen: torch.Tensor, lam) -> torch.Tensor:
     denom = torch.pow(k_item, one_minus)[:, None] * torch.pow(k_item, lam)[None, :]
     denom.masked_fill_(denom == 0, 1.0)  # in place: no second (I, I) temporary
     return W_gen / denom
+
+
+class EdgeSpreading(NamedTuple):
+    """HybridS W as ``hybrid_transfer`` gives it, held as factors of the
+    interaction edges: W = S . (A D2), S = D1 An^T."""
+    S: torch.Tensor  # (I, U) sparse CSR, An^T with row i scaled by k_i^-(1-l)
+    col_scale: torch.Tensor  # (I,) k_j^-l, 0 where k_j is 0
+
+
+def edge_spreading(n_users: int, n_items: int, edges: torch.Tensor, lam,
+                   dtype: torch.dtype = torch.float32) -> EdgeSpreading:
+    """The factors of W from a (2, n) edge array of (user, item) rows on its
+    device, no dense array: the rows sorted by (item, user), a repeated
+    pair kept once (its later copies stored with value 0), degrees of the
+    unique pairs as ``_item_degrees`` takes them of the 0/1 A, and the CSR
+    row pointers by ``searchsorted``; nothing waits for the device. A zero
+    degree's scale is 0 where ``hybrid_transfer`` clamps its denominator
+    to 1: that item's W row and column are zero either way."""
+    key = torch.sort(edges[1].long() * n_users + edges[0].long()).values
+    items = torch.div(key, n_users, rounding_mode="floor")
+    users = key - items * n_users
+    once = torch.ones(key.shape, dtype=dtype, device=key.device)
+    once[1:] = (key[1:] != key[:-1]).to(dtype)
+    k_user = torch.zeros(n_users, dtype=dtype, device=key.device).index_add_(0, users, once)
+    k_item = torch.zeros(n_items, dtype=dtype, device=key.device).index_add_(0, items, once)
+    one_minus, lam = blend_exponents(lam, dtype, key.device)
+
+    def inverse(x):
+        return torch.where(x == 0, 0.0, 1.0 / torch.where(x == 0, 1.0, x))
+
+    values = once * inverse(k_user)[users] * inverse(torch.pow(k_item, one_minus))[items]
+    crow = torch.searchsorted(items, torch.arange(n_items + 1, device=key.device),
+                              out_int32=True)
+    S = torch.sparse_csr_tensor(crow, users.int(), values, (n_items, n_users),
+                                check_invariants=False)
+    return EdgeSpreading(S, inverse(torch.pow(k_item, lam)))
+
+
+def transfer_block(spread: EdgeSpreading, a_cols: torch.Tensor, j0: int) -> torch.Tensor:
+    """W[:, j0:j0 + b] (I, b) of ``edge_spreading``'s W, from A's columns
+    j0 .. j0 + b - 1 (``a_cols``, (U, b), 0/1 in any dtype): one sparse
+    product, 2 nnz b operations. W_gen's terms are those of
+    ``general_spreading_matrix``, summed in another order and scaled by
+    products of reciprocals: within f32 rounding of ``hybrid_transfer``."""
+    b = a_cols.shape[1]
+    return torch.sparse.mm(spread.S, a_cols * spread.col_scale[j0:j0 + b])
 
 
 def resource(A: torch.Tensor, W: torch.Tensor) -> torch.Tensor:
