@@ -280,6 +280,23 @@ neither JAX nor ``lgcnhs_tpu``. Phases:
    the dense build's under f64 scores; one split launch and one counted
    block a block; ``serve_fused``'s peak memory below the dense build's;
    the W build's seconds on both (CUDA events).
+16. Kernel 4's compacted walk (``serve_compact_phase``, after phase 15; a
+   90 s budget, its time printed). (a) Small shapes (partial user blocks,
+   a block with no row, I off 32, 64 and 128, k == I, k above 128, k=1000
+   over catalog parts, a W of 20 significant bits): the compacted walk on
+   ``compact_operands`` and W's N-major parts against the twin bitwise on
+   dyadic inputs, and a second launch bitwise equal. (b) The Gowalla cell's
+   input (29,741 x 40,848, ~925 k train+val rows from the benchmark's
+   generator, ``portbench/problem.py``), where the walk rule picks the
+   compacted walk: ``serve_fused`` on both walks (the rule patched for the
+   dense one), lists tie-equivalent and each within ``score_gap`` 1e-4 of
+   ``portbench/reference/serve.py`` on the cell's sample of users, the
+   counters (``compact_launches``, ``k_rows`` over ``k_rows_dense``), each
+   walk's kernel ms (CUDA events) and two launches bitwise equal, the
+   compacted pass's peak memory no higher than the dense pass's. (c) In a
+   fresh process (``compact_trace_child``: a profiler session loses card
+   records late in a long process), one launch of each walk traced:
+   ``fused_serve_kernel`` events equal ``fused_lgcnhs_serve.launches``.
 
 Prints one PASS/FAIL line per check, then (all passed) the kernel JSON line,
 the ``nvidia-smi`` name/power-limit line, and the final
@@ -432,6 +449,11 @@ GRAPH_BUDGET_S = 40
 SERVE_BLOCKS_BUDGET_S = 45
 SERVE_BLOCKS_SHAPE = (6040, 20_000, 600_000)  # users, items, train+val rows
 BLOCK_W_REL_TOL = 1e-5
+# phase 16, kernel 4's compacted walk: its budget (printed), the seed of
+# the Gowalla input and its tables, and score_gap's limit (the cell's)
+SERVE_COMPACT_BUDGET_S = 90
+SERVE_COMPACT_SEED = 2_600_000_016
+SCORE_GAP_MAX = 1e-4
 GRAPH_TABLE_REL_TOL = 1e-5
 GRAPH_COO_EPOCHS = 5
 GRAPH_TIMING_EPOCHS = 200
@@ -2396,6 +2418,196 @@ def serve_blocks_phase(check, dev, smi):
             "agreement": agreement, "max_rel_w_gap": rel, "smi": smi}
 
 
+def compact_problem(torch, dev, U, I, D, density, seed, empty_block=False, w_bits=False):
+    """(ue, ie, A, W, seen) on the card for phase 16: dyadic tables and W
+    (every F sum and G * F exact in f32), A 0/1 at ``density`` (users
+    128-255 without a row with ``empty_block``); with ``w_bits`` W of 20
+    significant bits in [0.5, 1) and 12 items a user."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    ue = torch.randint(-8, 9, (U, D), generator=gen, device=dev).float() / 8
+    ie = torch.randint(-8, 9, (I, D), generator=gen, device=dev).float() / 8
+    if w_bits:
+        W = torch.randint(1 << 19, 1 << 20, (I, I), generator=gen, device=dev).float() / (1 << 20)
+        order = torch.rand((U, I), generator=gen, device=dev).argsort(dim=1)[:, :12]
+        A = torch.zeros((U, I), device=dev).scatter_(1, order, 1.0)
+    else:
+        W = torch.randint(0, 4, (I, I), generator=gen, device=dev).float() / 8
+        A = (torch.rand((U, I), generator=gen, device=dev) < density).float()
+    if empty_block:
+        A[128:256] = 0.0
+    return ue, ie, A, W, A > 0
+
+
+def compact_launch(torch, fs, ue, ie, A, W, seen, k):
+    """Kernel 4's compacted walk on (A, W): A's ``compact_operands`` from its
+    nonzeros, W's three bf16 parts N-major (``split_on_card``, no
+    transpose)."""
+    U, I = A.shape
+    edges = A.nonzero().T.int().contiguous()
+    ops = fs.compact_operands(U, I, edges)
+    w_rows = fs.split_on_card(W, fs.W_PARTS, fs.parts_ld(I))
+    return fs.fused_serve_parts(ue, ie, ops, w_rows, seen, k), ops, w_rows
+
+
+def compact_trace_child():
+    """Phase 16 (c) in a fresh process: ``python -c "import chip_smoke;
+    chip_smoke.compact_trace_child()"`` traces one launch of each walk of
+    kernel 4 (a 1,000 x 6,000 problem at 1% density) and prints one JSON
+    line: the ``fused_serve_kernel`` events, and the launch and compacted
+    launch counts over the session."""
+    import torch
+
+    from lgcnhs_tpu_torch.ops.cuda import fusion_serve as fs
+
+    dev = torch.device("cuda", 0)
+    ue, ie, A, W, seen = compact_problem(torch, dev, 1000, 6000, 64, 0.01, 16)
+    compact_launch(torch, fs, ue, ie, A, W, seen, 100)  # loads the library
+    fs.fused_lgcnhs_serve(ue, ie, A, W, seen, 100)
+    torch.cuda.synchronize()
+    f = fs.fused_lgcnhs_serve
+    before = (f.launches, f.compact_launches)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        compact_launch(torch, fs, ue, ie, A, W, seen, 100)
+        fs.fused_lgcnhs_serve(ue, ie, A, W, seen, 100)
+        torch.cuda.synchronize()
+    events = [e.name for e in prof.events() if "fused_serve_kernel" in e.name
+              and e.device_type == torch.autograd.DeviceType.CUDA]
+    print(json.dumps({"events": len(events), "names": sorted(set(n[:80] for n in events)),
+                      "launches": f.launches - before[0],
+                      "compact_launches": f.compact_launches - before[1]}))
+
+
+def serve_compact_phase(check, dev, smi):
+    """Phase 16 (module docstring): kernel 4's compacted walk. Returns its
+    row."""
+    import numpy as np
+    import torch
+
+    from lgcnhs_tpu_torch.data.graph import edge_array
+    from lgcnhs_tpu_torch.models import fusion
+    from lgcnhs_tpu_torch.models.lightgcn import LightGCNParams
+    from lgcnhs_tpu_torch.ops.cuda import fusion_serve as fs
+    from portbench import harness, judge, problem
+    from portbench.drivers import serve as dserve
+    from portbench.reference import serve as ref_serve
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # the twin's products in full f32
+    f = fs.fused_lgcnhs_serve
+
+    def walked(dense, fn):
+        """fn() with the walk rule as it is, or patched to the dense walk."""
+        saved = fusion.compact_walk
+        if dense:
+            fusion.compact_walk = lambda *args: False
+        try:
+            return fn()
+        finally:
+            fusion.compact_walk = saved
+    # (a) small shapes against the twin, bitwise
+    for U, I, D, k, density, extra in (
+            (300, 1000, 64, 100, 0.02, {"empty_block": True}), (37, 300, 20, 10, 0.05, {}),
+            (200, 45, 8, 45, 0.2, {}), (70, 1000, 64, 200, 0.01, {}),
+            (260, 5000, 64, 1000, 0.003, {}), (300, 2000, 64, 100, 0.0, {"w_bits": True})):
+        label = f"phase 16: compacted walk U={U} I={I} D={D} k={k} {extra or ''}".rstrip()
+        ue, ie, A, W, seen = compact_problem(torch, dev, U, I, D, density, U + I + k, **extra)
+        got, ops, w_rows = compact_launch(torch, fs, ue, ie, A, W, seen, k)
+        again = fs.fused_serve_parts(ue, ie, ops, w_rows, seen, k)
+        torch.cuda.synchronize()
+        compare(torch, check, label, got, fs.fused_lgcnhs_serve_ref(ue, ie, A, W, seen, k))
+        check(f"{label}: second launch bitwise equal",
+              torch.equal(got[0], again[0]) and torch.equal(got[1], again[1]))
+        del ue, ie, A, W, seen, ops, w_rows
+
+    # (b) the Gowalla cell's input
+    config = harness.config_file("gowalla")
+    seed = SERVE_COMPACT_SEED
+    rows = problem.table(config, seed)
+    cfg, graph = problem.program_graph(config, rows, seed, tempfile.mkdtemp(prefix="compact_"))
+    U, I = graph.n_users, graph.n_items
+    n = graph.train.n_edges + graph.val.n_edges
+    ue, ie = dserve.tables(config, seed, U, I, dev)
+    params = LightGCNParams(ue, ie)
+    sample = dserve.sample_users(graph, 256, seed)
+    rule = fusion.compact_walk(U, I, n)
+    check(f"phase 16: the walk rule takes the compacted walk at {U} x {I}, {n} rows", rule)
+
+    def pass_of(dense):
+        torch.cuda.synchronize(dev)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        t0 = time.perf_counter()
+        rec = walked(dense, lambda: fusion.serve_fused(graph, cfg, params))
+        s = time.perf_counter() - t0
+        return rec, torch.cuda.max_memory_allocated(dev) - base, s
+
+    pass_of(False)  # builds and loads the kernels
+    before = (f.launches, f.compact_launches, f.k_rows, f.k_rows_dense)
+    rec_c, peak_c, s_c = pass_of(False)
+    after = (f.launches, f.compact_launches, f.k_rows, f.k_rows_dense)
+    rec_d, peak_d, s_d = pass_of(True)
+    final = (f.launches, f.compact_launches, f.k_rows, f.k_rows_dense)
+    share = (after[2] - before[2]) / max(1, after[3] - before[3])
+    check("phase 16: one compacted launch counted, its contraction rows a share of the "
+          "dense walk's; the dense pass counts all its rows",
+          after[0] - before[0] == 1 and after[1] - before[1] == 1 and 0 < share < 1
+          and final[0] - after[0] == 1 and final[1] == after[1]
+          and final[2] - after[2] == final[3] - after[3] > 0,
+          f"k_rows share {share:.4f}")
+    split = problem.reference_split(config, rows)
+    scores = ref_serve.fused_scores(split, ue, ie, cfg.hparams.lambda_, sample)
+    gaps = [judge.score_gap(np.array(rec[sample]), scores) for rec in (rec_c, rec_d)]
+    check(f"phase 16: both walks' lists within score_gap {SCORE_GAP_MAX:g} of the reference",
+          max(gaps) <= SCORE_GAP_MAX, f"compacted {gaps[0]:.3e}, dense {gaps[1]:.3e}")
+    agreement = float((rec_c == rec_d).mean())
+    _, gap = tie_equivalence(torch, torch.from_numpy(rec_d[sample]).to(dev),
+                             torch.from_numpy(rec_c[sample]).to(dev), scores)
+    check("phase 16: the compacted walk's lists tie-equivalent to the dense walk's",
+          agreement >= AGREEMENT_MIN and gap <= GAP_MAX,
+          f"agreement {agreement:.6f}, mismatched-slot max relative gap {gap:.3e}")
+    check("phase 16: the compacted pass's peak memory no higher than the dense pass's",
+          peak_c <= peak_d, f"{peak_c / 2**30:.4f} GiB against {peak_d / 2**30:.4f} GiB")
+    del rec_c, rec_d, scores
+
+    edges = torch.from_numpy(edge_array(graph.train, graph.val)).to(dev)
+    kernel_ms = {}
+    for walk, dense in (("compacted", False), ("dense", True)):
+        a, w_parts, seen = walked(
+            dense, lambda: fusion.kernel_operands(U, I, edges, cfg.hparams.lambda_))
+        first = fs.fused_serve_parts(ue, ie, a, w_parts, seen, cfg.k)
+        times = []
+        for _ in range(3):
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            got = fs.fused_serve_parts(ue, ie, a, w_parts, seen, cfg.k)
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+        kernel_ms[walk] = sorted(times)[1]
+        check(f"phase 16: two {walk} launches at {U} x {I} bitwise equal",
+              torch.equal(first[0], got[0]) and torch.equal(first[1], got[1]))
+        del a, w_parts, seen, first, got
+    print(f"[phase 16] kernel 4 at {U} x {I}: compacted {kernel_ms['compacted']:.2f} ms, dense "
+          f"{kernel_ms['dense']:.2f} ms; passes {s_c:.3f} s / {s_d:.3f} s; peak "
+          f"{peak_c / 2**30:.4f} / {peak_d / 2**30:.4f} GiB [{smi}]", flush=True)
+
+    # (c) the trace, in a fresh process
+    proc = subprocess.run([sys.executable, "-c", "import chip_smoke; chip_smoke.compact_trace_child()"],
+                          cwd=ROOT, capture_output=True, text=True, timeout=120)
+    traced = json.loads(proc.stdout.strip().splitlines()[-1]) if proc.returncode == 0 else {}
+    check("phase 16: fused_serve_kernel events equal fused_lgcnhs_serve.launches over a traced "
+          "launch of each walk",
+          traced.get("events") == traced.get("launches") == 2
+          and traced.get("compact_launches") == 1,
+          f"{traced or proc.stderr[-2000:]}")
+    return {"shape": [U, I, n], "k_rows_share": share, "kernel_ms": kernel_ms,
+            "pass_s": {"compacted": s_c, "dense": s_d},
+            "peak_gib": {"compacted": peak_c / 2**30, "dense": peak_d / 2**30},
+            "score_gap": {"compacted": gaps[0], "dense": gaps[1]}, "agreement": agreement,
+            "trace": traced, "smi": smi}
+
+
 def trace_summary(trace_dir):
     """(trace files, events, events by category, card kernel names, MB) of a
     ``--profile`` directory; events only when it holds one file."""
@@ -4290,6 +4502,14 @@ def main() -> int:
     if phase15:
         print(f"[phase 15] {time.perf_counter() - t0:.1f} s (budget {SERVE_BLOCKS_BUDGET_S} s); "
               f"row {json.dumps(phase15)}", flush=True)
+
+    # -- 16. kernel 4's compacted walk -------------------------------------------
+    print(f"[phase 16] kernel 4's compacted walk on {smi}", flush=True)
+    t0 = time.perf_counter()
+    phase16 = check.guard("phase 16", serve_compact_phase, check, dev, smi)
+    if phase16:
+        print(f"[phase 16] {time.perf_counter() - t0:.1f} s (budget {SERVE_COMPACT_BUDGET_S} s); "
+              f"row {json.dumps(phase16)}", flush=True)
 
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
     if check.failures:

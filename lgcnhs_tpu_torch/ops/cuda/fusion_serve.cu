@@ -8,27 +8,43 @@
 // What bounds it: F = A.W. Its sparse work is nnz(A) * I multiply-adds
 // (0.2 TFLOP at ML-1M, 6040 x 3706); as a gather (the earlier design)
 // every nonzero re-reads a W row through L2, ~9 GB there, latency-bound.
-// This design does the dense product on the tensor cores instead:
-// 3 x 2 x U x I x I = 0.50 TFLOP at ML-1M (0.50 ms at 989 TFLOP/s), where
-// a tile of 128 users reads each W tile once per 128 users.
+// This design does the product on the tensor cores instead, a tile of 128
+// users reading each W tile once for all 128. It walks the contraction one
+// of two ways:
+// - dense: over all I, 3 x 2 x U x I x I = 0.50 TFLOP at ML-1M (0.50 ms at
+//   989 TFLOP/s), where most of a block's A columns are nonzero;
+// - compacted: a block of 128 users over J_b alone, the sorted union of its
+//   users' items (padded to a multiple of kKC), so the zero columns of A
+//   are skipped: at Gowalla and Amazon-Book densities (0.06-0.08%) J_b is
+//   5-6% of the catalog. The terms left out are products with A = 0, so F
+//   changes in f32 summation order only.
+// The serving path picks the walk from its input (models/fusion
+// compact_walk): compacted where a block's rows, 128 n / U on average for n
+// train+val rows and a bound on |J_b|, are at most half the catalog.
 //
 // Operands. A is 0/1 on the serving path, exact in bf16 (its one-part
 // split flags an A that is not, which then goes in as three parts, NA =
-// 3). W goes in as
-// three bf16 parts of W^T, W_hi + W_mid + W_lo = W exactly (each holds the
-// next 8 significand bits; ops/cuda/fusion_serve.py bf16_parts), transposed
-// so that both operands are K-major. Every product of parts is exact in f32
-// and the sums run in f32 (wgmma, bf16 in, f32 accumulators), so F differs
+// 3). W goes in as three bf16 parts, W_hi + W_mid + W_lo = W exactly (each
+// holds the next 8 significand bits; ops/cuda/fusion_serve.py bf16_parts).
+// Dense walk: parts of W^T, so that both operands are K-major. Compacted
+// walk: A restricted to J_b, block b's 128 rows of |J_b| entries
+// (K-major), and parts of W itself, N-major (row l holds W[l, :]), so that
+// the 128 items of a tile are one contiguous 256-byte piece of each
+// gathered row l of J_b; the tensor cores read that B tile MN-major (the
+// transpose bit of bf16 wgmma). Every product of parts is exact in f32 and
+// the sums run in f32 (wgmma, bf16 in, f32 accumulators), so F differs
 // from the plain f32 matmul only in summation order: bitwise equal on
 // dyadic inputs.
 //
 // Design. A block owns kBM = 128 users and one part of the catalog, which
 // it walks in item tiles of kBN = 128. For a tile:
-// 1. F tile = A[users, :] W[:, tile], the contraction over all I in
-//    chunks of kKC = 32 through a ring of 4 cp.async chunks (zero filled
-//    past the edges), laid out in the tensor cores' 64-byte swizzle; copies
-//    run 2 chunks ahead and one chunk's products stay in flight while the
-//    next is issued. Two warpgroups, each 64 users x the 128 items: wgmma
+// 1. F tile = A[users, :] W[:, tile], the contraction over the walk's
+//    columns (all I, or J_b) in chunks of kKC = 32 through a ring of 4
+//    cp.async chunks (zero filled past the edges), laid out in the tensor
+//    cores' 64-byte swizzle; copies run 2 chunks ahead and one chunk's
+//    products stay in flight while the next is issued. On the compacted
+//    walk a thread reads its W rows' indices one chunk before it copies
+//    them. Two warpgroups, each 64 users x the 128 items: wgmma
 //    m64n128k16 reads both operands from shared memory (no ldmatrix
 //    traffic through the registers, which bounded an mma.sync design), one
 //    product per part pair and 16-deep step.
@@ -49,8 +65,9 @@
 //    and stay candidates, so a user with fewer than k unseen items gets its
 //    seen items, lowest id first.
 // The wrapper splits A and W^T with bf16_parts_kernel, one pass each;
-// serving sets A's one part from its edges and splits W^T a block of
-// rows at a time into the parts buffer (models/fusion.serve_fused).
+// serving sets A's one part (or its compacted operands) from its edges and
+// splits W a block of items at a time into the parts buffer: rows of W^T,
+// or columns of W's rows (models/fusion.kernel_operands).
 // No array grows with I: the running lists (k entries a user) sit in
 // shared memory as far as they fit and in a device-memory workspace past
 // that (LongLists), so every catalog size and every k runs. The catalog
@@ -100,6 +117,18 @@ __device__ __forceinline__ uint64_t sw64_desc(const void* p) {
   return ((addr & 0x3FFFF) >> 4) | (1ull << 16) | ((uint64_t)(512 >> 4) << 32) | (2ull << 62);
 }
 
+// wgmma shared-memory descriptor of the compacted walk's N-major W tile:
+// kKC rows of the contraction, each row's 128 items as four 64-byte pieces
+// of 32 items, piece g of every row in a sub-tile of its own (kKC rows of 64
+// bytes, 2 KB, at g * 2 KB), in the 64-byte swizzle. Read MN-major: 8-row
+// groups 512 bytes apart (the stride offset), the 32-item sub-tiles 2 KB
+// apart (the leading offset); p the tile, +1 KB for the second 16-deep step.
+__device__ __forceinline__ uint64_t sw64_desc_mn(const void* p) {
+  const uint64_t addr = smem_addr(p);
+  return ((addr & 0x3FFFF) >> 4) | ((uint64_t)((kKC * 64) >> 4) << 16) |
+         ((uint64_t)(512 >> 4) << 32) | (2ull << 62);
+}
+
 // The copies a thread made (cp.async, the generic proxy), visible to the
 // tensor cores' reads of shared memory (the async proxy).
 __device__ __forceinline__ void fence_proxy_async() {
@@ -127,7 +156,9 @@ __device__ __forceinline__ void wgmma_wait(float (&d)[64]) {
 }
 
 // d (64 x 128, f32, the warpgroup's) += A (64 x 16) B^T (B: 128 x 16), A
-// and B K-major bf16 tiles in shared memory (descriptors da, db).
+// and B bf16 tiles in shared memory (descriptors da, db), A K-major, B
+// K-major (kTB = 0) or MN-major (kTB = 1, the transpose bit).
+template <int kTB>
 __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, uint64_t db) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
@@ -136,7 +167,7 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, ui
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
       "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      "}, %64, %65, p, 1, 1, 0, %67;\n}\n"
       :
         "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
@@ -146,7 +177,7 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, ui
         "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(1));
+      : "l"(da), "l"(db), "r"(1), "n"(kTB));
 }
 
 // Memory of one block (ops/cuda/fusion_serve.py serve_block_bytes): the
@@ -196,15 +227,22 @@ struct ServeSmem {
 // Writes the part's top-k of each user (ranked; past the part's item count
 // -inf with id INT_MAX) to row (part * U + u) of out_idx/out_val.
 // NA: bf16 parts of A; kPlace (ListPlace): where the long lists live, ws
-// has the block's slice.
-template <int NA, int kPlace>
+// has the block's slice. kCompact: the compacted walk (NA = 1): user block
+// b contracts over columns col_ptr[b] .. col_ptr[b + 1] - 1 (a multiple of
+// kKC), cols[l] the item of column l, Ap block b's kBM rows of A over them
+// from kBM * col_ptr[b] (zero rows past U), Wp W's parts N-major (row l is
+// W[l, :]); else the dense walk over all I, Ap (NA, U, ldk) and Wp W^T's
+// parts (col_ptr and cols unused).
+template <int NA, int kPlace, bool kCompact>
 __global__ void __launch_bounds__(kThreads, 1)
     fused_serve_kernel(const float* __restrict__ uT, int ldu, const float* __restrict__ itT,
                        int ldi, const __nv_bfloat16* __restrict__ Ap, int ldk,
+                       const int* __restrict__ col_ptr, const int* __restrict__ cols,
                        const __nv_bfloat16* __restrict__ Wp, int ldw,
                        const uint8_t* __restrict__ seen, int U, int I, int D, int k, int parts,
                        int part_len, int* __restrict__ ws, int32_t* __restrict__ out_idx,
                        float* __restrict__ out_val) {
+  static_assert(!kCompact || NA == 1, "the compacted walk takes A's one part");
   extern __shared__ __align__(1024) unsigned char smem[];  // swizzled tiles: 512-byte aligned
   ServeSmem sm(smem,
                kPlace == kListsShared ? nullptr
@@ -213,11 +251,12 @@ __global__ void __launch_bounds__(kThreads, 1)
   constexpr int kStageBytes = NA * kABytes + kWP * kWBytes;
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
-  const int part = blockIdx.x % parts, u0 = (blockIdx.x / parts) * kBM;
+  const int part = blockIdx.x % parts, ub = blockIdx.x / parts, u0 = ub * kBM;
   const int j_lo = part * part_len, j_hi = min(I, j_lo + part_len);
   const int wg = w >> 2;                      // warpgroup: users 64 wg .. 64 wg + 63
   const int rb = 64 * wg + 16 * (w & 3) + g;  // the thread's accumulator rows: rb, rb + 8
-  const int nk = (I + kKC - 1) / kKC;
+  const int l_lo = kCompact ? col_ptr[ub] : 0;  // the walk's first column
+  const int nk = kCompact ? (col_ptr[ub + 1] - l_lo) / kKC : (I + kKC - 1) / kKC;
   const size_t a_stride = (size_t)U * ldk, w_stride = (size_t)I * ldw;
   const int excluded = order_key(kExcluded);
   for (int u = threadIdx.x; u < kBM; u += kThreads) {
@@ -237,6 +276,13 @@ __global__ void __launch_bounds__(kThreads, 1)
   static_assert(kBM * (kKC / 8) == 2 * kThreads && kBN == kBM, "two copies a thread per part");
   const int c_row = threadIdx.x / (kKC / 8), c_ch = threadIdx.x % (kKC / 8);
   const int c_dst = c_row * (2 * kKC) + (sw64_chunk(c_row, c_ch) << 4);  // + 64 rows: same chunk
+  // compacted walk: this thread's 16-byte copies of a W part's chunk are
+  // piece n_q of rows n_row and n_row + 16 (a row's 128 items: 16 pieces,
+  // 4 to a 32-item sub-tile), at the same swizzled place in both
+  static_assert(kKC * (kBN / 8) == 2 * kThreads, "two W copies a thread per part");
+  const int n_q = threadIdx.x % (kBN / 8), n_row = threadIdx.x / (kBN / 8);
+  const int n_dst = (n_q >> 2) * (kKC * 64) + n_row * 64 + (sw64_chunk(n_row, n_q & 3) << 4);
+  const int a_len = nk * kKC;  // compacted walk: A's row length in the block
 
   for (int j0 = j_lo; j0 < j_hi; j0 += kBN) {
     const __nv_bfloat16* a_src[kACopies];
@@ -244,22 +290,39 @@ __global__ void __launch_bounds__(kThreads, 1)
     bool a_ok[2], w_ok[2];
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      a_ok[h] = u0 + c_row + 64 * h < U;
-      w_ok[h] = j0 + c_row + 64 * h < I;
+      a_ok[h] = kCompact || u0 + c_row + 64 * h < U;
+      w_ok[h] = kCompact ? j0 + 8 * n_q < I : j0 + c_row + 64 * h < I;
     }
 #pragma unroll
     for (int m = 0; m < kACopies; ++m)
-      a_src[m] = Ap + (m >> 1) * a_stride +
-                 (size_t)(a_ok[m & 1] ? u0 + c_row + 64 * (m & 1) : 0) * ldk + 8 * c_ch;
+      a_src[m] = kCompact ? Ap + (size_t)kBM * l_lo + (size_t)(c_row + 64 * (m & 1)) * a_len +
+                                8 * c_ch
+                          : Ap + (m >> 1) * a_stride +
+                                (size_t)(a_ok[m & 1] ? u0 + c_row + 64 * (m & 1) : 0) * ldk +
+                                8 * c_ch;
 #pragma unroll
     for (int m = 0; m < kWCopies; ++m)
-      w_src[m] = Wp + (m >> 1) * w_stride +
-                 (size_t)(w_ok[m & 1] ? j0 + c_row + 64 * (m & 1) : 0) * ldw + 8 * c_ch;
+      w_src[m] = kCompact ? Wp + (m >> 1) * w_stride + (w_ok[0] ? j0 + 8 * n_q : 0)
+                          : Wp + (m >> 1) * w_stride +
+                                (size_t)(w_ok[m & 1] ? j0 + c_row + 64 * (m & 1) : 0) * ldw +
+                                8 * c_ch;
+    // compacted walk: the W rows (items of cols) of the next chunk to copy,
+    // read a chunk ahead so that the copies do not wait for them
+    int n_rows[2] = {0, 0};
+    auto read_rows = [&](int c) {
+      if constexpr (kCompact) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          n_rows[h] = c < nk ? cols[l_lo + c * kKC + n_row + 16 * h] : 0;
+      }
+    };
+    read_rows(0);
     auto load = [&](int c) {
       if (c < nk) {
         unsigned char* st = sm.region + (c % kStages) * kStageBytes;
         const int l0 = c * kKC;
-        const bool in_a = l0 + 8 * c_ch < ldk, in_w = l0 + 8 * c_ch < ldw;
+        const bool in_a = kCompact || l0 + 8 * c_ch < ldk;
+        const bool in_w = kCompact || l0 + 8 * c_ch < ldw;
 #pragma unroll
         for (int m = 0; m < kACopies; ++m) {
           const bool ok = a_ok[m & 1] && in_a;
@@ -268,10 +331,17 @@ __global__ void __launch_bounds__(kThreads, 1)
         }
 #pragma unroll
         for (int m = 0; m < kWCopies; ++m) {
-          const bool ok = w_ok[m & 1] && in_w;
-          cp_async16(st + NA * kABytes + (m >> 1) * kWBytes + 64 * (m & 1) * (2 * kKC) + c_dst,
-                     ok ? w_src[m] + l0 : Wp, ok);
+          if constexpr (kCompact) {
+            const bool ok = w_ok[0];
+            cp_async16(st + NA * kABytes + (m >> 1) * kWBytes + 16 * 64 * (m & 1) + n_dst,
+                       ok ? w_src[m] + (size_t)n_rows[m & 1] * ldw : Wp, ok);
+          } else {
+            const bool ok = w_ok[m & 1] && in_w;
+            cp_async16(st + NA * kABytes + (m >> 1) * kWBytes + 64 * (m & 1) * (2 * kKC) + c_dst,
+                       ok ? w_src[m] + l0 : Wp, ok);
+          }
         }
+        read_rows(c + 1);
       }
       cp_async_commit();  // empty past the end
     };
@@ -314,8 +384,13 @@ __global__ void __launch_bounds__(kThreads, 1)
         for (int pa = 0; pa < NA; ++pa) {
           const uint64_t da = sw64_desc(st + pa * kABytes + wg * 64 * (2 * kKC) + 32 * kk);
 #pragma unroll
-          for (int pw = 0; pw < kWP; ++pw)
-            wgmma_m64n128k16(acc, da, sw64_desc(st + NA * kABytes + pw * kWBytes + 32 * kk));
+          for (int pw = 0; pw < kWP; ++pw) {
+            const unsigned char* wt = st + NA * kABytes + pw * kWBytes;
+            if constexpr (kCompact)
+              wgmma_m64n128k16<1>(acc, da, sw64_desc_mn(wt + 16 * 64 * kk));
+            else
+              wgmma_m64n128k16<0>(acc, da, sw64_desc(wt + 32 * kk));
+          }
         }
       }
       wgmma_commit();
@@ -468,20 +543,20 @@ __device__ __forceinline__ void split_entry(float v, int n, size_t part, __nv_bf
 
 // x (rows, cols) f32 as n bf16 parts (ops/cuda/fusion_serve.py bf16_parts
 // is the plain version), part p starting at out + p * part: of x, rows of
-// ld entries, entries past column cols zero, a block a row at a time, with
-// n = 1 flagging an x not exact in bf16 in *inexact (when not null); or of
-// x^T (kT), cols rows of ld entries, entries past column rows zero, through
-// 32 x 32 tiles in shared memory so that reads and writes are both
-// coalesced. One pass.
+// ld entries ldo apart, entries past column cols zero, a block a row at a
+// time, with n = 1 flagging an x not exact in bf16 in *inexact (when not
+// null); or of x^T (kT), cols rows of ld entries ldo apart, entries past
+// column rows zero, through 32 x 32 tiles in shared memory so that reads
+// and writes are both coalesced. One pass.
 template <bool kT>
 __global__ void __launch_bounds__(kThreads)
-    bf16_parts_kernel(const float* __restrict__ x, int rows, int cols, int ld, int n,
+    bf16_parts_kernel(const float* __restrict__ x, int rows, int cols, int ld, size_t ldo, int n,
                       size_t part, __nv_bfloat16* __restrict__ out, int* __restrict__ inexact) {
   if constexpr (!kT) {
     for (int r = blockIdx.x; r < rows; r += gridDim.x)
       for (int c = threadIdx.x; c < ld; c += kThreads)
-        split_entry(c < cols ? x[(size_t)r * cols + c] : 0.0f, n, part,
-                    out + (size_t)r * ld + c, n == 1 ? inexact : nullptr);
+        split_entry(c < cols ? x[(size_t)r * cols + c] : 0.0f, n, part, out + r * ldo + c,
+                    n == 1 ? inexact : nullptr);
   } else {
     __shared__ float tile[32][33];
     const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
@@ -495,27 +570,64 @@ __global__ void __launch_bounds__(kThreads)
       __syncthreads();
       for (int i = ty; i < 32; i += kWarps) {
         const int c = c0 + i, r = r0 + tx;  // out row c, column r
-        if (c < cols && r < ld) split_entry(tile[tx][i], n, part, out + (size_t)c * ld + r);
+        if (c < cols && r < ld) split_entry(tile[tx][i], n, part, out + c * ldo + r);
       }
       __syncthreads();
     }
   }
 }
 
-// f(kernel) for the instance of NA parts of A whose long lists live at
-// `place`; `bad` for other values.
+// f(kernel) for the instance of NA parts of A and the walk (compact) whose
+// long lists live at `place`; `bad` for other values. Only the instances
+// that run are made: the compacted walk takes A's one part.
 template <typename F>
-int with_kernel(int na, int place, int bad, F&& f) {
-  if (na == 1) {
-    if (place == kListsShared) return f(fused_serve_kernel<1, kListsShared>);
-    if (place == kRunGlobal) return f(fused_serve_kernel<1, kRunGlobal>);
-    if (place == kAllGlobal) return f(fused_serve_kernel<1, kAllGlobal>);
+int with_kernel(int na, bool compact, int place, int bad, F&& f) {
+  if (compact) {
+    if (na != 1) return bad;
+    if (place == kListsShared) return f(fused_serve_kernel<1, kListsShared, true>);
+    if (place == kRunGlobal) return f(fused_serve_kernel<1, kRunGlobal, true>);
+    if (place == kAllGlobal) return f(fused_serve_kernel<1, kAllGlobal, true>);
+  } else if (na == 1) {
+    if (place == kListsShared) return f(fused_serve_kernel<1, kListsShared, false>);
+    if (place == kRunGlobal) return f(fused_serve_kernel<1, kRunGlobal, false>);
+    if (place == kAllGlobal) return f(fused_serve_kernel<1, kAllGlobal, false>);
   } else if (na == 3) {
-    if (place == kListsShared) return f(fused_serve_kernel<3, kListsShared>);
-    if (place == kRunGlobal) return f(fused_serve_kernel<3, kRunGlobal>);
-    if (place == kAllGlobal) return f(fused_serve_kernel<3, kAllGlobal>);
+    if (place == kListsShared) return f(fused_serve_kernel<3, kListsShared, false>);
+    if (place == kRunGlobal) return f(fused_serve_kernel<3, kRunGlobal, false>);
+    if (place == kAllGlobal) return f(fused_serve_kernel<3, kAllGlobal, false>);
   }
   return bad;
+}
+
+// One launch of either walk (compact: col_ptr and cols given) and, with
+// parts > 1, the merge of the part lists; the arguments as the exported
+// launchers below take them.
+int serve_launch(const float* uT, int ldu, const float* itT, int ldi, const void* a, int na,
+                 int ldk, const int* col_ptr, const int* cols, const void* w_parts, int ldw,
+                 const uint8_t* seen, int U, int I, int D, int k, int parts, int part_len,
+                 int smem_limit, int* ws, int32_t* part_idx, float* part_val, int32_t* idx,
+                 float* vals, void* stream) {
+  const bool compact = col_ptr != nullptr;
+  const int place = ServeSmem::place(k, na, smem_limit);
+  if (U < 1 || I < 1 || D < 1 || k < 1 || k > I || (na != 1 && na != 3) || ldu < U ||
+      ldu % 4 || ldi < I || ldi % 4 || (!compact && (ldk < I || ldk % 8)) || ldw < I ||
+      ldw % 8 || (compact && (na != 1 || !cols)) || parts < 1 || part_len < kBN ||
+      part_len % kBN || (long long)parts * part_len < I || place < 0 ||
+      (place != kListsShared && !ws))
+    return (int)cudaErrorInvalidValue;
+  const int blocks = (U + kBM - 1) / kBM * parts;
+  const size_t smem = ServeSmem::smem_bytes(place, k, na);
+  int32_t* out_idx = parts > 1 ? part_idx : idx;
+  float* out_val = parts > 1 ? part_val : vals;
+  const auto* A16 = static_cast<const __nv_bfloat16*>(a);
+  const auto* W16 = static_cast<const __nv_bfloat16*>(w_parts);
+  int rc = with_kernel(na, compact, place, (int)cudaErrorInvalidValue, [&](auto kernel) {
+    return lgcnhs_launch(kernel, blocks, smem, stream, uT, ldu, itT, ldi, A16, ldk, col_ptr,
+                         cols, W16, ldw, seen, U, I, D, k, parts, part_len, ws, out_idx,
+                         out_val);
+  });
+  if (rc != 0 || parts == 1) return rc;
+  return lgcnhs_launch_part_merge(part_idx, part_val, U, k, parts, smem_limit, idx, vals, stream);
 }
 
 }  // namespace
@@ -538,24 +650,26 @@ extern "C" int fused_lgcnhs_serve_launch(const float* uT, int ldu, const float* 
                                          int smem_limit, int* ws, int32_t* part_idx,
                                          float* part_val, int32_t* idx, float* vals,
                                          void* stream) {
-  const int place = ServeSmem::place(k, na, smem_limit);
-  if (U < 1 || I < 1 || D < 1 || k < 1 || k > I || (na != 1 && na != 3) || ldu < U ||
-      ldu % 4 || ldi < I || ldi % 4 || ldk < I || ldk % 8 || ldw < I || ldw % 8 || parts < 1 ||
-      part_len < kBN || part_len % kBN || (long long)parts * part_len < I || place < 0 ||
-      (place != kListsShared && !ws))
-    return (int)cudaErrorInvalidValue;
-  const int blocks = (U + kBM - 1) / kBM * parts;
-  const size_t smem = ServeSmem::smem_bytes(place, k, na);
-  int32_t* out_idx = parts > 1 ? part_idx : idx;
-  float* out_val = parts > 1 ? part_val : vals;
-  const auto* A16 = static_cast<const __nv_bfloat16*>(a_parts);
-  const auto* W16 = static_cast<const __nv_bfloat16*>(w_parts);
-  int rc = with_kernel(na, place, (int)cudaErrorInvalidValue, [&](auto kernel) {
-    return lgcnhs_launch(kernel, blocks, smem, stream, uT, ldu, itT, ldi, A16, ldk, W16, ldw,
-                         seen, U, I, D, k, parts, part_len, ws, out_idx, out_val);
-  });
-  if (rc != 0 || parts == 1) return rc;
-  return lgcnhs_launch_part_merge(part_idx, part_val, U, k, parts, smem_limit, idx, vals, stream);
+  return serve_launch(uT, ldu, itT, ldi, a_parts, na, ldk, nullptr, nullptr, w_parts, ldw, seen,
+                      U, I, D, k, parts, part_len, smem_limit, ws, part_idx, part_val, idx, vals,
+                      stream);
+}
+
+// The compacted walk (the kernel's header): as fused_lgcnhs_serve_launch,
+// with A as col_ptr (ceil(U / 128) + 1 column offsets, multiples of 32),
+// cols (the item of each column, all < I) and a_cols (block b's 128 rows
+// of col_ptr[b + 1] - col_ptr[b] bf16 entries from 128 col_ptr[b], zero
+// rows past U), and w_parts (3, I, ldw) the bf16 parts of W itself, zero
+// past column I.
+extern "C" int fused_lgcnhs_serve_compact_launch(
+    const float* uT, int ldu, const float* itT, int ldi, const void* a_cols,
+    const int* col_ptr, const int* cols, const void* w_parts, int ldw, const uint8_t* seen,
+    int U, int I, int D, int k, int parts, int part_len, int smem_limit, int* ws,
+    int32_t* part_idx, float* part_val, int32_t* idx, float* vals, void* stream) {
+  if (!col_ptr) return (int)cudaErrorInvalidValue;
+  return serve_launch(uT, ldu, itT, ldi, a_cols, 1, 0, col_ptr, cols, w_parts, ldw, seen, U, I,
+                      D, k, parts, part_len, smem_limit, ws, part_idx, part_val, idx, vals,
+                      stream);
 }
 
 // x (rows, cols) f32, contiguous, into out: n bf16 parts of x, rows of ld
@@ -574,10 +688,24 @@ extern "C" int bf16_parts_launch(const float* x, int rows, int cols, int ld, int
     return (int)cudaErrorInvalidValue;
   auto* o = static_cast<__nv_bfloat16*>(out);
   if (transpose)
-    return lgcnhs_launch(bf16_parts_kernel<true>, 4096, 0, stream, x, rows, cols, ld, n,
-                         (size_t)part, o, static_cast<int*>(nullptr));
+    return lgcnhs_launch(bf16_parts_kernel<true>, 4096, 0, stream, x, rows, cols, ld, (size_t)ld,
+                         n, (size_t)part, o, static_cast<int*>(nullptr));
   return lgcnhs_launch(bf16_parts_kernel<false>, rows < 4096 ? rows : 4096, 0, stream, x, rows,
-                       cols, ld, n, (size_t)part, o, inexact);
+                       cols, ld, (size_t)ld, n, (size_t)part, o, inexact);
+}
+
+// x (rows, cols) f32, contiguous, as its three bf16 parts into a block of
+// columns of a larger parts buffer: row r of part p at out + p * part + r *
+// ldo, its cols entries written, the rest of each row left as it is
+// (bf16_parts_kernel). The compacted walk's W parts are made so, a block of
+// items at a time.
+extern "C" int bf16_parts_cols_launch(const float* x, int rows, int cols, long long ldo,
+                                      long long part, void* out, void* stream) {
+  if (rows < 1 || cols < 1 || ldo < cols || part < (long long)(rows - 1) * ldo + cols)
+    return (int)cudaErrorInvalidValue;
+  return lgcnhs_launch(bf16_parts_kernel<false>, rows < 4096 ? rows : 4096, 0, stream, x, rows,
+                       cols, cols, (size_t)ldo, 3, (size_t)part,
+                       static_cast<__nv_bfloat16*>(out), static_cast<int*>(nullptr));
 }
 
 // Shared memory of one block at k with na parts of A, its long lists
@@ -595,12 +723,13 @@ extern "C" long long fused_serve_workspace_bytes(int k, int na, int smem_limit) 
 }
 
 // Blocks of the kernel at k, na that one SM of the current device holds at
-// once (registers and shared memory); -1 on error.
+// once (registers and shared memory); -1 on error. The compacted walk's
+// instance takes NA = 1's shared memory, which holds one block an SM.
 extern "C" int fused_serve_resident_blocks(int k, int na, int smem_limit) {
   const int place = ServeSmem::place(k, na, smem_limit);
   if (place < 0) return -1;
   const int smem = (int)ServeSmem::smem_bytes(place, k, na);
-  return with_kernel(na, place, -1, [&](auto kernel) {
+  return with_kernel(na, false, place, -1, [&](auto kernel) {
     int n = 0;
     if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem) !=
             cudaSuccess ||

@@ -22,20 +22,29 @@ launched the kernel, ``fused_lgcnhs_serve.merge_launches`` those that also
 launched its second kernel, the merge of the catalog parts, and
 ``fused_lgcnhs_serve.split_launches`` the launches of the kernel that splits
 A and W into bf16 parts (two a call, three when A is not exact in bf16;
-one a block of W^T's rows where serving builds the parts itself,
+one a block of W's items where serving builds the parts itself,
 ``fused_serve_parts``); a launch captured into a CUDA graph counts at each
 replay (``ops/cuda/launches``).
+
+The kernel walks the contraction F = A.W over all I (the dense walk) or,
+given A's ``CompactOperands``, over each 128-user block's own items (the
+compacted walk, ``fusion_serve.cu``'s header).
+``fused_lgcnhs_serve.compact_launches`` counts the launches of the
+compacted walk; ``.k_rows`` and ``.k_rows_dense`` the contraction rows
+the launches walked (over the blocks) and the rows the dense walk would
+have walked. A compacted launch's rows are a value on the card, added by
+``count_k_rows`` once its lists were waited for.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple, Optional, Tuple
+from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
 
 from lgcnhs_tpu_torch.ops.cuda import build
-from lgcnhs_tpu_torch.ops.cuda.launches import count_launch
+from lgcnhs_tpu_torch.ops.cuda.launches import count, count_launch
 from lgcnhs_tpu_torch.ops.cuda.retrieval import _padded_t, _sm_count, spread_parts
 from lgcnhs_tpu_torch.ops.topk import select_topk
 
@@ -111,13 +120,27 @@ def parts_ld(n_items: int) -> int:
     return n_items + (-n_items % 64)
 
 
+class CompactOperands(NamedTuple):
+    """A on the compacted walk. For block b of 128 users, J_b: the sorted
+    items of its users' rows, padded with item 0 to a multiple of 32
+    columns; A's block rows restricted to J_b, zero in the padding and in
+    the rows of users past U. Every size is set by (U, n) alone
+    (``compact_operands``), so building it waits for nothing."""
+    col_ptr: torch.Tensor  # (blocks + 1,) int32: block b's columns col_ptr[b] .. col_ptr[b + 1] - 1
+    cols: torch.Tensor  # (n + 31 blocks,) int32: each column's item; past col_ptr[-1] unused
+    a_cols: torch.Tensor  # (128 (n + 31 blocks),) bf16: block b's 128 rows of its |J_b| entries,
+    #                      K-major, from 128 col_ptr[b]
+
+
 class ServeOperands(NamedTuple):
     """The kernel's operands: the transposed tables (rows padded to 4
-    floats) and the bf16 parts of A and W (rows padded to 64 entries)."""
+    floats) and the bf16 parts of A and W (rows padded to 64 entries). On
+    the compacted walk ``a_parts`` is A's ``CompactOperands`` and
+    ``w_parts`` W's own parts, N-major."""
     uT: torch.Tensor  # (D, ldu) f32
     itT: torch.Tensor  # (D, ldi) f32
-    a_parts: torch.Tensor  # (1 or 3, U, ldk) bf16
-    w_parts: torch.Tensor  # (3, I, ldw) bf16, parts of W^T
+    a_parts: Union[torch.Tensor, CompactOperands]  # (1 or 3, U, ldk) bf16
+    w_parts: torch.Tensor  # (3, I, ldw) bf16, parts of W^T (of W on the compacted walk)
 
 
 def serve_operands(user_emb, item_emb, A, W) -> ServeOperands:
@@ -177,6 +200,80 @@ def split_rows_into(x: torch.Tensor, out: torch.Tensor) -> None:
         split_on_card(x, W_PARTS, out.shape[2], transpose=True, out=out)
     else:
         bf16_parts_into(x.T, out)
+
+
+def split_cols_into(x: torch.Tensor, out: torch.Tensor) -> None:
+    """The three bf16 parts of x, (rows, b) f32, into ``out`` (3, rows, b),
+    a block of columns of a parts buffer (unit column stride): on the card
+    by ``bf16_parts_cols_launch``, one pass, else ``bf16_parts_into``."""
+    rows, cols = x.shape
+    if out.shape != (W_PARTS, rows, cols) or out.stride(2) != 1:
+        raise ValueError(f"split_cols_into: x {tuple(x.shape)}, out {tuple(out.shape)}, "
+                         f"strides {out.stride()}")
+    if x.device.type != "cuda":
+        bf16_parts_into(x, out)
+        return
+    x = x.contiguous()
+    lib, _ = _launcher()
+    with torch.cuda.device(x.device):
+        rc = lib.bf16_parts_cols_launch(x.data_ptr(), rows, cols, out.stride(1), out.stride(0),
+                                        out.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    build.check_launch(lib, rc, "bf16_parts_cols")
+    count_launch(fused_lgcnhs_serve, "split_launches")
+
+
+def compact_operands(n_users: int, n_items: int, edges: torch.Tensor) -> CompactOperands:
+    """A's ``CompactOperands`` from a (2, n) ``edge_array`` of (user,
+    item) rows on its device, rows repeated or not: the rows sorted by
+    (block, item, user), each (block, item) pair numbered within its
+    block by a running count of the pairs' first rows, the blocks' widths
+    padded and summed into ``col_ptr``, then each pair's item scattered
+    into ``cols`` and each row's 1 filled into ``a_cols``. Every array is
+    sized from (U, n) alone (a block's items are at most its rows), so no
+    step waits for the device."""
+    dev = edges.device
+    blocks = -(-n_users // BLOCK_USERS)
+    bound = edges.shape[1] + (CHUNK - 1) * blocks
+    users = edges[0].long()
+    key = torch.sort(((users // BLOCK_USERS) * n_items + edges[1].long()) * BLOCK_USERS
+                     + users % BLOCK_USERS).values
+    pair = key // BLOCK_USERS  # block * I + item
+    row = key - pair * BLOCK_USERS
+    block = pair // n_items
+    first = torch.ones_like(pair)
+    first[1:] = pair[1:] != pair[:-1]
+    width = torch.zeros(blocks, dtype=torch.long, device=dev).index_add_(0, block, first)
+    column = torch.cumsum(first, 0) - 1 - (torch.cumsum(width, 0) - width)[block]
+    padded = (width + CHUNK - 1) // CHUNK * CHUNK
+    col_ptr = torch.cat([padded.new_zeros(1), torch.cumsum(padded, 0)])
+    start = col_ptr[block]
+    cols = torch.zeros(bound, dtype=torch.int32, device=dev)
+    cols.scatter_(0, start + column, (pair - block * n_items).int())
+    a_cols = torch.zeros(BLOCK_USERS * bound, dtype=torch.bfloat16, device=dev)
+    a_cols.index_fill_(0, BLOCK_USERS * start + row * padded[block] + column, 1.0)
+    return CompactOperands(col_ptr.int(), cols, a_cols)
+
+
+def compact_dense(ops: CompactOperands, n_users: int, n_items: int) -> torch.Tensor:
+    """The (U, I) f32 A that ``ops`` holds: each block's columns added into
+    its items (a padding column adds zeros to item 0)."""
+    ptr = ops.col_ptr.tolist()
+    A = torch.zeros(((len(ptr) - 1) * BLOCK_USERS, n_items), device=ops.a_cols.device)
+    for b in range(len(ptr) - 1):
+        block = ops.a_cols[BLOCK_USERS * ptr[b]:BLOCK_USERS * ptr[b + 1]]
+        A[BLOCK_USERS * b:BLOCK_USERS * (b + 1)].index_add_(
+            1, ops.cols[ptr[b]:ptr[b + 1]].long(), block.view(BLOCK_USERS, -1).float())
+    return A[:n_users]
+
+
+def count_k_rows(a) -> None:
+    """Adds a compacted launch's contraction rows (``col_ptr[-1]``, on the
+    card) to ``fused_lgcnhs_serve.k_rows``; ``a`` is the A operand handed to
+    ``fused_serve_parts``, so nothing is added for a dense walk (counted at
+    its launch) or off the card (no launch). Called once the launch's lists
+    were waited for, the read waits for nothing."""
+    if isinstance(a, CompactOperands) and a.col_ptr.device.type == "cuda":
+        count(fused_lgcnhs_serve, "k_rows", int(a.col_ptr[-1]))
 
 
 def serve_block_bytes(k: int, a_parts: int, smem_limit: int) -> Tuple[int, int]:
@@ -260,30 +357,38 @@ def fused_lgcnhs_serve(
 def fused_serve_parts(
     user_emb: torch.Tensor,  # (U, D) f32 layer-0 user table
     item_emb: torch.Tensor,  # (I, D) f32 layer-0 item table
-    a_parts: torch.Tensor,  # (1 or 3, U, ld) bf16 parts of A, zero past column I
-    w_parts: torch.Tensor,  # (3, I, ld) bf16 parts of W^T, zero past column I
+    a_parts,  # (1 or 3, U, ld) bf16 parts of A, zero past column I; or A's CompactOperands
+    w_parts: torch.Tensor,  # (3, I, ld) bf16 parts of W^T (of W for CompactOperands), zero past column I
     seen: torch.Tensor,  # (U, I) bool
     k: int,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``fused_lgcnhs_serve`` on A and W given as their bf16 parts (the
     serving path builds them from the edges, ``models/fusion``), counted
-    as its launches. Given CPU tensors, the twin on the parts' sums."""
-    I = item_emb.shape[0]
-    if seen.dtype != torch.bool or tuple(seen.shape) != (user_emb.shape[0], I) \
-            or not 1 <= k <= I:
+    as its launches: the dense walk on A's parts and W^T's, the compacted
+    walk on A's ``CompactOperands`` and W's parts (row l holds W[l, :]).
+    Given CPU tensors, the twin on the parts' sums."""
+    U, I = user_emb.shape[0], item_emb.shape[0]
+    compact = isinstance(a_parts, CompactOperands)
+    if seen.dtype != torch.bool or tuple(seen.shape) != (U, I) or not 1 <= k <= I:
         raise ValueError(f"fused_serve_parts: seen {tuple(seen.shape)} {seen.dtype}, k {k}")
     if user_emb.device.type == "cpu":
-        A = a_parts.float().sum(0)[:, :I]
-        W = w_parts.float().sum(0)[:, :I].T
-        return fused_lgcnhs_serve_ref(user_emb, item_emb, A, W, seen, k)
+        A = compact_dense(a_parts, U, I) if compact else a_parts.float().sum(0)[:, :I]
+        W = w_parts.float().sum(0)[:, :I]
+        return fused_lgcnhs_serve_ref(user_emb, item_emb, A, W if compact else W.T, seen, k)
     for name, t in (("user_emb", user_emb), ("item_emb", item_emb)):
         if t.dtype != torch.float32:
             raise TypeError(f"fused_serve_parts: {name} must be float32, got {t.dtype}")
     ld = parts_ld(I)
-    if (a_parts.shape[1:] != (user_emb.shape[0], ld) or w_parts.shape != (W_PARTS, I, ld)
-            or a_parts.dtype != torch.bfloat16 or w_parts.dtype != torch.bfloat16):
-        raise ValueError(f"fused_serve_parts: a_parts {tuple(a_parts.shape)} {a_parts.dtype}, "
-                         f"w_parts {tuple(w_parts.shape)} {w_parts.dtype}, I {I}")
+    if compact:
+        a_ok = (a_parts.col_ptr.shape == (-(-U // BLOCK_USERS) + 1,)
+                and a_parts.a_cols.numel() == BLOCK_USERS * a_parts.cols.numel()
+                and (a_parts.col_ptr.dtype, a_parts.cols.dtype, a_parts.a_cols.dtype)
+                == (torch.int32, torch.int32, torch.bfloat16))
+    else:
+        a_ok = a_parts.shape[1:] == (U, ld) and a_parts.dtype == torch.bfloat16
+    if not a_ok or w_parts.shape != (W_PARTS, I, ld) or w_parts.dtype != torch.bfloat16:
+        raise ValueError(f"fused_serve_parts: A's operands do not fit U {U}, or w_parts "
+                         f"{tuple(w_parts.shape)} {w_parts.dtype} does not fit I {I}")
     ops = ServeOperands(_padded_t(user_emb), _padded_t(item_emb), a_parts, w_parts)
     return _launch_counted(ops, seen, k)
 
@@ -295,6 +400,13 @@ def _launch_counted(ops: ServeOperands, seen: torch.Tensor,
     count_launch(fused_lgcnhs_serve)
     if parts > 1:
         count_launch(fused_lgcnhs_serve, "merge_launches")
+    U, I = seen.shape
+    dense_rows = -(-U // BLOCK_USERS) * -(-I // CHUNK) * CHUNK
+    count(fused_lgcnhs_serve, "k_rows_dense", dense_rows)
+    if isinstance(ops.a_parts, CompactOperands):
+        count_launch(fused_lgcnhs_serve, "compact_launches")
+    else:
+        count(fused_lgcnhs_serve, "k_rows", dense_rows)
     return idx, vals
 
 
@@ -306,7 +418,8 @@ def launch_kernel(lib: ctypes.CDLL, fn, ops: ServeOperands, seen: torch.Tensor,
     D, U = ops.uT.shape[0], seen.shape[0]
     I = ops.w_parts.shape[1]
     dev = seen.device
-    plan = serve_plan(lib, U, I, k, ops.a_parts.shape[0], dev)
+    compact = isinstance(ops.a_parts, CompactOperands)
+    plan = serve_plan(lib, U, I, k, 1 if compact else ops.a_parts.shape[0], dev)
     seen8 = seen.contiguous().view(torch.uint8)
     idx = torch.empty((U, k), dtype=torch.int32, device=dev)
     vals = torch.empty((U, k), dtype=torch.float32, device=dev)
@@ -317,14 +430,20 @@ def launch_kernel(lib: ctypes.CDLL, fn, ops: ServeOperands, seen: torch.Tensor,
     if plan.ws_bytes:  # the long lists that do not fit shared memory
         blocks = -(-U // BLOCK_USERS) * plan.parts
         ws = torch.empty(blocks * plan.ws_bytes // 4, dtype=torch.int32, device=dev)
+    tables = (ops.uT.data_ptr(), ops.uT.shape[1], ops.itT.data_ptr(), ops.itT.shape[1])
+    rest = (ops.w_parts.data_ptr(), ops.w_parts.shape[2], seen8.data_ptr(),
+            U, I, D, k, plan.parts, plan.part_len, plan.smem_limit,
+            None if ws is None else ws.data_ptr(), part_idx.data_ptr(),
+            part_val.data_ptr(), idx.data_ptr(), vals.data_ptr())
     with torch.cuda.device(dev):
-        rc = fn(ops.uT.data_ptr(), ops.uT.shape[1], ops.itT.data_ptr(), ops.itT.shape[1],
-                ops.a_parts.data_ptr(), ops.a_parts.shape[0], ops.a_parts.shape[2],
-                ops.w_parts.data_ptr(), ops.w_parts.shape[2], seen8.data_ptr(),
-                U, I, D, k, plan.parts, plan.part_len, plan.smem_limit,
-                None if ws is None else ws.data_ptr(), part_idx.data_ptr(),
-                part_val.data_ptr(), idx.data_ptr(), vals.data_ptr(),
-                torch.cuda.current_stream().cuda_stream)
+        stream = torch.cuda.current_stream().cuda_stream
+        a = ops.a_parts
+        if compact:
+            rc = lib.fused_lgcnhs_serve_compact_launch(
+                *tables, a.a_cols.data_ptr(), a.col_ptr.data_ptr(), a.cols.data_ptr(), *rest,
+                stream)
+        else:
+            rc = fn(*tables, a.data_ptr(), a.shape[0], a.shape[2], *rest, stream)
     build.check_launch(lib, rc, "fused_lgcnhs_serve")
     return idx, vals, plan.parts
 
@@ -332,6 +451,9 @@ def launch_kernel(lib: ctypes.CDLL, fn, ops: ServeOperands, seen: torch.Tensor,
 fused_lgcnhs_serve.launches = 0
 fused_lgcnhs_serve.merge_launches = 0
 fused_lgcnhs_serve.split_launches = 0
+fused_lgcnhs_serve.compact_launches = 0
+fused_lgcnhs_serve.k_rows = 0
+fused_lgcnhs_serve.k_rows_dense = 0
 
 
 def bind(lib: ctypes.CDLL):
@@ -343,6 +465,14 @@ def bind(lib: ctypes.CDLL):
     lib.fused_serve_resident_blocks.restype = _INT
     lib.bf16_parts_launch.argtypes = [_PTR] + [_INT] * 5 + [ctypes.c_longlong] + [_PTR] * 3
     lib.bf16_parts_launch.restype = _INT
+    if hasattr(lib, "fused_lgcnhs_serve_compact_launch"):  # older copies (tools/kernel_ab.py)
+        lib.bf16_parts_cols_launch.argtypes = [_PTR, _INT, _INT] + [ctypes.c_longlong] * 2 \
+            + [_PTR] * 2
+        lib.bf16_parts_cols_launch.restype = _INT
+        compact = lib.fused_lgcnhs_serve_compact_launch
+        compact.argtypes = [_PTR, _INT, _PTR, _INT] + [_PTR] * 4 + [_INT, _PTR] + [_INT] * 7 \
+            + [_PTR] * 6
+        compact.restype = _INT
     fn = lib.fused_lgcnhs_serve_launch
     fn.argtypes = ([_PTR, _INT, _PTR, _INT, _PTR, _INT, _INT, _PTR, _INT, _PTR]
                    + [_INT] * 7 + [_PTR] * 6)
