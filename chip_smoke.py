@@ -272,7 +272,7 @@ neither JAX nor ``lgcnhs_tpu``. Phases:
    in its own process's first minute of profiling).
 15. Serving's kernel operands built from the edges (``serve_blocks_phase``,
    last; a 45 s budget, its time printed), at 6,040 x 20,000 (five blocks
-   of W^T's rows): ``models/fusion.kernel_operands`` against the dense
+   of W^T's rows): ``fusion_serve.kernel_operands`` against the dense
    build's split (``fused_lgcnhs_serve``'s ``serve_operands`` on the f32 A
    and the dense W): A's part and seen bit for bit, W^T's parts equal
    wherever the two W agree and within ``BLOCK_W_REL_TOL`` of it
@@ -2343,7 +2343,7 @@ def serve_blocks_phase(check, dev, smi):
     ie = 0.1 * torch.randn(I, 64, generator=gen, device=dev)
     cfg = tcfg.load_config(dataset="synthetic", model="SpreadLightGCNOpti",
                            overrides={"k": k, "hparams.lambda_": lam})
-    blocks = -(-I // fusion.W_BLOCK)
+    blocks = -(-I // fs.W_BLOCK)
 
     def peak_of(fn):
         torch.cuda.synchronize(dev)
@@ -2367,7 +2367,7 @@ def serve_blocks_phase(check, dev, smi):
     rec_blocks, peak_blocks = peak_of(lambda: fusion.serve_fused(graph, cfg,
                                                                  LightGCNParams(ue, ie)))
     counted = (fusion.serve_fused.w_blocks - b0, fs.fused_lgcnhs_serve.split_launches - s0)
-    check(f"phase 15: one split launch and one counted block a block of {fusion.W_BLOCK} "
+    check(f"phase 15: one split launch and one counted block a block of {fs.W_BLOCK} "
           f"items ({blocks} at {I})", counted == (blocks, blocks), f"{counted}")
 
     edges = torch.from_numpy(tg.edge_array(train, val)).to(dev)
@@ -2382,8 +2382,7 @@ def serve_blocks_phase(check, dev, smi):
           peak_blocks < peak_dense,
           f"{peak_blocks / 2**30:.4f} GiB against {peak_dense / 2**30:.4f} GiB")
 
-    (a_parts, w_parts, seen), block_s = timed(
-        lambda: fusion.kernel_operands(U, I, edges, lam))
+    (a_parts, w_parts, seen, _, _), block_s = timed(lambda: fs.kernel_operands(U, I, edges, lam))
     (A, seen_dense), _ = timed(lambda: tg.dense_positives(U, I, edges))
     W, dense_s = timed(lambda: hybrid_transfer(A, general_spreading_matrix(A), lam))
     whole = fs.serve_operands(ue, ie, A, W)
@@ -2441,12 +2440,12 @@ def compact_problem(torch, dev, U, I, D, density, seed, empty_block=False, w_bit
 def compact_launch(torch, fs, ue, ie, A, W, seen, k):
     """Kernel 4's compacted walk on (A, W): A's ``compact_operands`` from its
     nonzeros, W's three bf16 parts N-major (``split_on_card``, no
-    transpose)."""
+    transpose); the lists and the operands."""
     U, I = A.shape
     edges = A.nonzero().T.int().contiguous()
-    ops = fs.compact_operands(U, I, edges)
-    w_rows = fs.split_on_card(W, fs.W_PARTS, fs.parts_ld(I))
-    return fs.fused_serve_parts(ue, ie, ops, w_rows, seen, k), ops, w_rows
+    ops = fs.KernelOperands(fs.compact_operands(U, I, edges),
+                            fs.split_on_card(W, fs.W_PARTS, fs.parts_ld(I)), seen, True, 0)
+    return fs.fused_serve_parts(ue, ie, ops, k), ops
 
 
 def compact_trace_child():
@@ -2497,13 +2496,13 @@ def serve_compact_phase(check, dev, smi):
 
     def walked(dense, fn):
         """fn() with the walk rule as it is, or patched to the dense walk."""
-        saved = fusion.compact_walk
+        saved = fs.compact_walk
         if dense:
-            fusion.compact_walk = lambda *args: False
+            fs.compact_walk = lambda *args: False
         try:
             return fn()
         finally:
-            fusion.compact_walk = saved
+            fs.compact_walk = saved
     # (a) small shapes against the twin, bitwise
     for U, I, D, k, density, extra in (
             (300, 1000, 64, 100, 0.02, {"empty_block": True}), (37, 300, 20, 10, 0.05, {}),
@@ -2511,13 +2510,13 @@ def serve_compact_phase(check, dev, smi):
             (260, 5000, 64, 1000, 0.003, {}), (300, 2000, 64, 100, 0.0, {"w_bits": True})):
         label = f"phase 16: compacted walk U={U} I={I} D={D} k={k} {extra or ''}".rstrip()
         ue, ie, A, W, seen = compact_problem(torch, dev, U, I, D, density, U + I + k, **extra)
-        got, ops, w_rows = compact_launch(torch, fs, ue, ie, A, W, seen, k)
-        again = fs.fused_serve_parts(ue, ie, ops, w_rows, seen, k)
+        got, ops = compact_launch(torch, fs, ue, ie, A, W, seen, k)
+        again = fs.fused_serve_parts(ue, ie, ops, k)
         torch.cuda.synchronize()
         compare(torch, check, label, got, fs.fused_lgcnhs_serve_ref(ue, ie, A, W, seen, k))
         check(f"{label}: second launch bitwise equal",
               torch.equal(got[0], again[0]) and torch.equal(got[1], again[1]))
-        del ue, ie, A, W, seen, ops, w_rows
+        del ue, ie, A, W, seen, ops
 
     # (b) the Gowalla cell's input
     config = harness.config_file("gowalla")
@@ -2529,7 +2528,7 @@ def serve_compact_phase(check, dev, smi):
     ue, ie = dserve.tables(config, seed, U, I, dev)
     params = LightGCNParams(ue, ie)
     sample = dserve.sample_users(graph, 256, seed)
-    rule = fusion.compact_walk(U, I, n)
+    rule = fs.compact_walk(U, I, n)
     check(f"phase 16: the walk rule takes the compacted walk at {U} x {I}, {n} rows", rule)
 
     def pass_of(dense):
@@ -2573,21 +2572,20 @@ def serve_compact_phase(check, dev, smi):
     edges = torch.from_numpy(edge_array(graph.train, graph.val)).to(dev)
     kernel_ms = {}
     for walk, dense in (("compacted", False), ("dense", True)):
-        a, w_parts, seen = walked(
-            dense, lambda: fusion.kernel_operands(U, I, edges, cfg.hparams.lambda_))
-        first = fs.fused_serve_parts(ue, ie, a, w_parts, seen, cfg.k)
+        ops = walked(dense, lambda: fs.kernel_operands(U, I, edges, cfg.hparams.lambda_))
+        first = fs.fused_serve_parts(ue, ie, ops, cfg.k)
         times = []
         for _ in range(3):
             start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
             start.record()
-            got = fs.fused_serve_parts(ue, ie, a, w_parts, seen, cfg.k)
+            got = fs.fused_serve_parts(ue, ie, ops, cfg.k)
             end.record()
             end.synchronize()
             times.append(start.elapsed_time(end))
         kernel_ms[walk] = sorted(times)[1]
         check(f"phase 16: two {walk} launches at {U} x {I} bitwise equal",
               torch.equal(first[0], got[0]) and torch.equal(first[1], got[1]))
-        del a, w_parts, seen, first, got
+        del ops, first, got
     print(f"[phase 16] kernel 4 at {U} x {I}: compacted {kernel_ms['compacted']:.2f} ms, dense "
           f"{kernel_ms['dense']:.2f} ms; passes {s_c:.3f} s / {s_d:.3f} s; peak "
           f"{peak_c / 2**30:.4f} / {peak_d / 2**30:.4f} GiB [{smi}]", flush=True)
@@ -3719,8 +3717,8 @@ def main() -> int:
         check(f"main path launched {name}", n > 0, f"{n} launches")
     check("main path launched the retrieval kernel's merge over its catalog parts with each "
           "call", merges["fused_topk_retrieval"] == launches["fused_topk_retrieval"], f"{merges}")
-    # serve_fused builds W^T's parts itself: one split a block of fusion.W_BLOCK items
-    w_blocks = sum(-(-cells[(model, args[1], k)][1].n_items // fusion.W_BLOCK)
+    # serve_fused builds W^T's parts itself: one split a block of fs.W_BLOCK items
+    w_blocks = sum(-(-cells[(model, args[1], k)][1].n_items // fs.W_BLOCK)
                    for model, args, k in runs if model == "SpreadLightGCNOpti")
     check("main path launched the fused serve's merge with each call and its bf16 split "
           "with each block of W^T's rows",

@@ -116,20 +116,6 @@ def dense_positives(n_users: int, n_items: int, edges: torch.Tensor):
     return A, A != 0
 
 
-def positive_parts(n_users: int, n_items: int, ld: int, edges: torch.Tensor):
-    """(a_parts, seen) set on ``edges``' device from an ``edge_array``, as the
-    fused serving kernel reads them: A's one bf16 part, (1, U, ld), 0/1
-    (exact in bf16) with zeros past column I, and the bool seen, (U, I);
-    equal to ``dense_positives``' A in bf16 and its seen. No (U, I) f32
-    array: each is zeroed and filled at the rows' flat indices (int64)."""
-    users, items = edges[0].long(), edges[1].long()
-    a_parts = torch.zeros((1, n_users, ld), dtype=torch.bfloat16, device=edges.device)
-    a_parts.view(-1).index_fill_(0, users * ld + items, 1.0)
-    seen = torch.zeros((n_users, n_items), dtype=torch.bool, device=edges.device)
-    seen.view(-1).index_fill_(0, users * n_items + items, True)
-    return a_parts, seen
-
-
 def item_degrees(n_items: int, *edge_sets: EdgeSet) -> np.ndarray:
     """Item degree = number of interaction ROWS touching the item across the
     given splits (reference ``utils/trans.py:94-116`` counts dict-list

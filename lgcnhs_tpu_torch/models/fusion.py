@@ -28,17 +28,14 @@ import torch
 from lgcnhs_tpu_torch.config import Config
 from lgcnhs_tpu_torch.data.graph import (
     InteractionGraph, dense_positives, edge_array, interaction_matrix, pos_bool_matrix,
-    positive_parts,
 )
 from lgcnhs_tpu_torch.models.lightgcn import LightGCNParams, layer0_scores
 from lgcnhs_tpu_torch.ops.cuda.fusion_serve import (
-    BLOCK_USERS, W_PARTS, compact_operands, count_k_rows, fused_lgcnhs_serve_ref,
-    fused_serve_parts, parts_ld, split_cols_into, split_rows_into,
+    fused_lgcnhs_serve_ref, fused_serve_parts, kernel_operands,
 )
 from lgcnhs_tpu_torch.ops.cuda.launches import count
 from lgcnhs_tpu_torch.ops.diffusion import (
-    diffusion_scores_auto, edge_spreading, general_spreading_matrix, hybrid_resource,
-    hybrid_transfer, transfer_block,
+    diffusion_scores_auto, general_spreading_matrix, hybrid_resource, hybrid_transfer,
 )
 from lgcnhs_tpu_torch.ops.topk import MASK_VALUE, rank_exclude_seen_topk
 from lgcnhs_tpu_torch.parallel.sharding import (
@@ -92,12 +89,11 @@ def serve_fused(
     reference ranker beside it.
 
     Everything is set on the tables' device from the train+val rows, and
-    nothing is kept between calls. The kernel route builds the kernel's
-    operands themselves (``kernel_operands``): A's bf16 part and seen from
-    the edges, W's bf16 parts a block of items at a time, with no (I, I)
-    or (U, I) f32 array, and, on the compacted walk (``compact_walk``), A
-    restricted to each user block's items. The plain route sets the f32 A
-    and seen (``data/graph.dense_positives``) and the dense W.
+    nothing is kept between calls. The kernel route hands the edges to the
+    kernel's wrapper, which builds the kernel's operands from them and
+    chooses the walk (``ops/cuda/fusion_serve.kernel_operands``). The plain
+    route sets the f32 A and seen (``data/graph.dense_positives``) and the
+    dense W.
 
     Each call is a ``serve.pass`` span (counted in ``serve_fused.passes``)
     holding a ``serve.build`` of the (2, n) edge array on the host, a
@@ -106,9 +102,8 @@ def serve_fused(
     ``serve.transfer_matrix`` (W; on the kernel route one ``serve.w_block``
     a block, counted in ``serve_fused.w_blocks``; on the compacted walk a
     third ``serve.build``, A over each block's items), ``serve.rank`` (the
-    launch, or the plain chain) and ``serve.download``, which waits for the
-    card (``runtime/logging.span``); after it a compacted launch's
-    contraction rows are counted (``fusion_serve.count_k_rows``)."""
+    launch, or the plain chain) and ``serve.download``
+    (``runtime/logging.span``)."""
     device = params.user_emb.device
     log = get_logger()
     count(_COUNTERS, "passes")
@@ -130,80 +125,19 @@ def serve_fused(
             with span("serve.rank"):
                 rec = _serve_unfused(ue, ie, A, W, seen, cfg.k)
         else:
-            a_parts, w_parts, seen = kernel_operands(graph.n_users, graph.n_items, edges,
-                                                     cfg.hparams.lambda_, W_BLOCK)
+            ops = kernel_operands(graph.n_users, graph.n_items, edges, cfg.hparams.lambda_)
             del edges
+            count(_COUNTERS, "w_blocks", ops.w_blocks)
             with span("serve.rank"):
-                rec = fused_serve_parts(ue, ie, a_parts, w_parts, seen, cfg.k)[0]
+                rec = fused_serve_parts(ue, ie, ops, cfg.k)[0]
         with span("serve.download"):
-            rec = rec.cpu().numpy()
-        if route == "kernel":
-            count_k_rows(a_parts)
-        return rec
+            return rec.cpu().numpy()
 
 
 serve_fused.passes = 0  # calls
 serve_fused.h2d_bytes = 0  # bytes of the host arrays the calls handed to .to(device)
-serve_fused.w_blocks = 0  # blocks of W^T's parts built (kernel route)
+serve_fused.w_blocks = 0  # blocks of W's parts built (kernel route)
 _COUNTERS = serve_fused  # their owner, also where a caller wraps the module's name
-
-# Items a block of W's parts: ML-1M's catalog is one block, Gowalla's ten;
-# a block's (I, b) f32 product stays near 1.5 GB at 91,599 items.
-W_BLOCK = 4096
-# The compacted walk's bound, a share of the catalog: it is taken where a
-# user block's rows, 128 n / U on average (its items are at most its rows),
-# are at most this share of I. ML-1M reads 5.2 and is dense; Gowalla 0.097
-# and Amazon-Book 0.071 compact.
-COMPACT_SHARE = 0.5
-
-
-def compact_walk(n_users: int, n_items: int, n_rows: int) -> bool:
-    """Whether kernel 4 walks each user block's items alone (its
-    ``CompactOperands``) rather than the whole catalog, from the shapes of
-    its input: U, I and the n train+val rows."""
-    return BLOCK_USERS * n_rows <= COMPACT_SHARE * n_users * n_items
-
-
-def kernel_operands(n_users: int, n_items: int, edges: torch.Tensor, lam,
-                    block: int = W_BLOCK):
-    """(a, w_parts, seen) for ``fused_serve_parts`` from the (2, n)
-    train+val edge array on the device: A's one bf16 part and seen
-    (``data/graph.positive_parts``, a ``serve.build``), then, in
-    ``serve.transfer_matrix``, W's factors (``ops/diffusion.edge_spreading``)
-    and W's three bf16 parts, (3, I, ld), one ``serve.w_block`` per
-    ``block`` items j: W[:, j] from A's columns (``transfer_block``, one
-    sparse product) split into the parts: rows j of W^T's
-    (``split_rows_into``), or on the compacted walk (``compact_walk``)
-    columns j of W's own (``split_cols_into``). Live at once: the parts,
-    seen and one block's (U, b) and (I, b) f32. ``a`` is A's part, or on the
-    compacted walk A's ``CompactOperands`` (a ``serve.build``), made once
-    the block's arrays and A's part are freed, so they stay below the
-    blocks' peak."""
-    ld = parts_ld(n_items)
-    compact = compact_walk(n_users, n_items, edges.shape[1])
-    with span("serve.build"):
-        a_parts, seen = positive_parts(n_users, n_items, ld, edges)
-    with span("serve.transfer_matrix"):
-        spread = edge_spreading(n_users, n_items, edges, lam)
-        w_parts = torch.empty((W_PARTS, n_items, ld), dtype=torch.bfloat16, device=edges.device)
-        if compact:
-            w_parts[:, :, n_items:] = 0
-        for j0 in range(0, n_items, block):
-            with span("serve.w_block"):
-                count(_COUNTERS, "w_blocks")
-                j1 = min(j0 + block, n_items)
-                W_cols = transfer_block(spread, a_parts[0, :, j0:j1], j0)
-                if compact:
-                    split_cols_into(W_cols, w_parts[:, :, j0:j1])
-                else:
-                    split_rows_into(W_cols, w_parts[:, j0:j1])
-                del W_cols
-    if not compact:
-        return a_parts, w_parts, seen
-    del spread, a_parts
-    with span("serve.build"):
-        return compact_operands(n_users, n_items, edges), w_parts, seen
-
 
 def _upload(host: np.ndarray, device: torch.device) -> torch.Tensor:
     """``host`` on ``device`` (a copy to the card), its bytes counted."""

@@ -22,18 +22,20 @@ launched the kernel, ``fused_lgcnhs_serve.merge_launches`` those that also
 launched its second kernel, the merge of the catalog parts, and
 ``fused_lgcnhs_serve.split_launches`` the launches of the kernel that splits
 A and W into bf16 parts (two a call, three when A is not exact in bf16;
-one a block of W's items where serving builds the parts itself,
-``fused_serve_parts``); a launch captured into a CUDA graph counts at each
+one a block of W's items where serving builds the parts from the edges,
+``kernel_operands``); a launch captured into a CUDA graph counts at each
 replay (``ops/cuda/launches``).
 
-The kernel walks the contraction F = A.W over all I (the dense walk) or,
-given A's ``CompactOperands``, over each 128-user block's own items (the
-compacted walk, ``fusion_serve.cu``'s header).
+Serving builds the kernel's operands from the train+val edges here
+(``kernel_operands``), which also chooses the walk of the contraction
+F = A.W (``compact_walk``): over all I (the dense walk) or over each
+128-user block's own items (the compacted walk, ``fusion_serve.cu``'s
+header); ``fused_serve_parts`` launches the kernel on them.
 ``fused_lgcnhs_serve.compact_launches`` counts the launches of the
 compacted walk; ``.k_rows`` and ``.k_rows_dense`` the contraction rows
 the launches walked (over the blocks) and the rows the dense walk would
-have walked. A compacted launch's rows are a value on the card, added by
-``count_k_rows`` once its lists were waited for.
+have walked. A compacted launch's rows are a value on the card, read
+after the launch, a read that waits for it.
 """
 from __future__ import annotations
 
@@ -46,7 +48,9 @@ import torch
 from lgcnhs_tpu_torch.ops.cuda import build
 from lgcnhs_tpu_torch.ops.cuda.launches import count, count_launch
 from lgcnhs_tpu_torch.ops.cuda.retrieval import _padded_t, _sm_count, spread_parts
+from lgcnhs_tpu_torch.ops.diffusion import edge_spreading, transfer_block
 from lgcnhs_tpu_torch.ops.topk import select_topk
+from lgcnhs_tpu_torch.runtime.logging import span
 
 EXCLUDED = -3.0e38
 BLOCK_USERS = 128  # users a block, fusion_serve.cu kBM
@@ -56,6 +60,14 @@ STAGES = 4  # chunks in the copy ring, kStages
 W_PARTS = 3  # bf16 parts of W, kWP
 G_SLICE = 16  # depth of one staged slice of the G operands, kGD
 WARPS = 8
+# Items a block of W's parts: ML-1M's catalog is one block, Gowalla's ten;
+# a block's (I, b) f32 product stays near 1.5 GB at 91,599 items.
+W_BLOCK = 4096
+# The compacted walk's bound, a share of the catalog: it is taken where a
+# user block's rows, 128 n / U on average (its items are at most its rows),
+# are at most this share of I. ML-1M reads 5.2 and is dense; Gowalla 0.097
+# and Amazon-Book 0.071 compact.
+COMPACT_SHARE = 0.5
 
 _LIB = "fusion_serve"
 _PTR = ctypes.c_void_p
@@ -135,12 +147,13 @@ class CompactOperands(NamedTuple):
 class ServeOperands(NamedTuple):
     """The kernel's operands: the transposed tables (rows padded to 4
     floats) and the bf16 parts of A and W (rows padded to 64 entries). On
-    the compacted walk ``a_parts`` is A's ``CompactOperands`` and
-    ``w_parts`` W's own parts, N-major."""
+    the compacted walk (``compact``) ``a_parts`` is A's ``CompactOperands``
+    and ``w_parts`` W's own parts, N-major."""
     uT: torch.Tensor  # (D, ldu) f32
     itT: torch.Tensor  # (D, ldi) f32
     a_parts: Union[torch.Tensor, CompactOperands]  # (1 or 3, U, ldk) bf16
     w_parts: torch.Tensor  # (3, I, ldw) bf16, parts of W^T (of W on the compacted walk)
+    compact: bool = False  # the walk
 
 
 def serve_operands(user_emb, item_emb, A, W) -> ServeOperands:
@@ -192,7 +205,7 @@ def split_on_card(x: torch.Tensor, n: int, ld: int, transpose: bool = False,
     return out
 
 
-def split_rows_into(x: torch.Tensor, out: torch.Tensor) -> None:
+def _split_rows_into(x: torch.Tensor, out: torch.Tensor) -> None:
     """The three bf16 parts of x^T, x (rows, b) f32, into ``out`` (3, b,
     ld), a block of rows of a parts buffer: on the card by
     ``split_on_card``'s transposing pass, else ``bf16_parts_into``."""
@@ -202,17 +215,14 @@ def split_rows_into(x: torch.Tensor, out: torch.Tensor) -> None:
         bf16_parts_into(x.T, out)
 
 
-def split_cols_into(x: torch.Tensor, out: torch.Tensor) -> None:
+def _split_cols_into(x: torch.Tensor, out: torch.Tensor) -> None:
     """The three bf16 parts of x, (rows, b) f32, into ``out`` (3, rows, b),
     a block of columns of a parts buffer (unit column stride): on the card
     by ``bf16_parts_cols_launch``, one pass, else ``bf16_parts_into``."""
-    rows, cols = x.shape
-    if out.shape != (W_PARTS, rows, cols) or out.stride(2) != 1:
-        raise ValueError(f"split_cols_into: x {tuple(x.shape)}, out {tuple(out.shape)}, "
-                         f"strides {out.stride()}")
     if x.device.type != "cuda":
         bf16_parts_into(x, out)
         return
+    rows, cols = x.shape
     x = x.contiguous()
     lib, _ = _launcher()
     with torch.cuda.device(x.device):
@@ -266,14 +276,77 @@ def compact_dense(ops: CompactOperands, n_users: int, n_items: int) -> torch.Ten
     return A[:n_users]
 
 
-def count_k_rows(a) -> None:
-    """Adds a compacted launch's contraction rows (``col_ptr[-1]``, on the
-    card) to ``fused_lgcnhs_serve.k_rows``; ``a`` is the A operand handed to
-    ``fused_serve_parts``, so nothing is added for a dense walk (counted at
-    its launch) or off the card (no launch). Called once the launch's lists
-    were waited for, the read waits for nothing."""
-    if isinstance(a, CompactOperands) and a.col_ptr.device.type == "cuda":
-        count(fused_lgcnhs_serve, "k_rows", int(a.col_ptr[-1]))
+def compact_walk(n_users: int, n_items: int, n_rows: int) -> bool:
+    """Whether kernel 4 walks each user block's items alone (its
+    ``CompactOperands``) rather than the whole catalog, from the shapes of
+    its input: U, I and the n train+val rows."""
+    return BLOCK_USERS * n_rows <= COMPACT_SHARE * n_users * n_items
+
+
+def positive_parts(n_users: int, n_items: int, edges: torch.Tensor):
+    """(a_parts, seen) set on ``edges``' device from an ``edge_array``, as the
+    kernel reads them: A's one bf16 part, (1, U, ld), 0/1 (exact in bf16)
+    with zeros past column I, and the bool seen, (U, I); equal to
+    ``data/graph.dense_positives``' A in bf16 and its seen. No (U, I) f32
+    array: each is zeroed and filled at the rows' flat indices (int64)."""
+    ld = parts_ld(n_items)
+    users, items = edges[0].long(), edges[1].long()
+    a_parts = torch.zeros((1, n_users, ld), dtype=torch.bfloat16, device=edges.device)
+    a_parts.view(-1).index_fill_(0, users * ld + items, 1.0)
+    seen = torch.zeros((n_users, n_items), dtype=torch.bool, device=edges.device)
+    seen.view(-1).index_fill_(0, users * n_items + items, True)
+    return a_parts, seen
+
+
+class KernelOperands(NamedTuple):
+    """The kernel's operands built from the edges (``kernel_operands``),
+    on the walk chosen there: on the dense walk ``a`` is A's one bf16 part
+    and ``w_parts`` W^T's parts; on the compacted walk ``a`` is A's
+    ``CompactOperands`` and ``w_parts`` W's own parts, N-major."""
+    a: Union[torch.Tensor, CompactOperands]  # (1, U, ld) bf16, or A's CompactOperands
+    w_parts: torch.Tensor  # (3, I, ld) bf16, zero past column I
+    seen: torch.Tensor  # (U, I) bool
+    compact: bool  # the walk, ``compact_walk`` of the input
+    w_blocks: int  # blocks of W's parts built
+
+
+def kernel_operands(n_users: int, n_items: int, edges: torch.Tensor, lam) -> KernelOperands:
+    """The operands of ``fused_serve_parts`` from the (2, n) train+val edge
+    array on the device, with no (I, I) or (U, I) f32 array: A's one bf16
+    part and seen (``positive_parts``, a ``serve.build``), then, in
+    ``serve.transfer_matrix``, W's factors (``ops/diffusion.edge_spreading``)
+    and W's three bf16 parts, (3, I, ld), one ``serve.w_block`` per
+    ``W_BLOCK`` items j: W[:, j] from A's columns (``transfer_block``, one
+    sparse product) split into the parts: rows j of W^T's, or on the
+    compacted walk (``compact_walk``) columns j of W's own. Live at once:
+    the parts, seen and one block's (U, b) and (I, b) f32. On the compacted
+    walk A's ``CompactOperands`` (a ``serve.build``) are made once the
+    block's arrays and A's part are freed, so they stay below the blocks'
+    peak. Nothing waits for the device."""
+    ld = parts_ld(n_items)
+    compact = compact_walk(n_users, n_items, edges.shape[1])
+    with span("serve.build"):
+        a, seen = positive_parts(n_users, n_items, edges)
+    with span("serve.transfer_matrix"):
+        spread = edge_spreading(n_users, n_items, edges, lam)
+        w_parts = torch.empty((W_PARTS, n_items, ld), dtype=torch.bfloat16, device=edges.device)
+        if compact:
+            w_parts[:, :, n_items:] = 0
+        starts = range(0, n_items, W_BLOCK)
+        for j0 in starts:
+            with span("serve.w_block"):
+                j1 = min(j0 + W_BLOCK, n_items)
+                W_cols = transfer_block(spread, a[0, :, j0:j1], j0)
+                if compact:
+                    _split_cols_into(W_cols, w_parts[:, :, j0:j1])
+                else:
+                    _split_rows_into(W_cols, w_parts[:, j0:j1])
+                del W_cols
+    if compact:
+        del spread, a
+        with span("serve.build"):
+            a = compact_operands(n_users, n_items, edges)
+    return KernelOperands(a, w_parts, seen, compact, len(starts))
 
 
 def serve_block_bytes(k: int, a_parts: int, smem_limit: int) -> Tuple[int, int]:
@@ -357,40 +430,27 @@ def fused_lgcnhs_serve(
 def fused_serve_parts(
     user_emb: torch.Tensor,  # (U, D) f32 layer-0 user table
     item_emb: torch.Tensor,  # (I, D) f32 layer-0 item table
-    a_parts,  # (1 or 3, U, ld) bf16 parts of A, zero past column I; or A's CompactOperands
-    w_parts: torch.Tensor,  # (3, I, ld) bf16 parts of W^T (of W for CompactOperands), zero past column I
-    seen: torch.Tensor,  # (U, I) bool
+    ops: KernelOperands,
     k: int,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``fused_lgcnhs_serve`` on A and W given as their bf16 parts (the
-    serving path builds them from the edges, ``models/fusion``), counted
-    as its launches: the dense walk on A's parts and W^T's, the compacted
-    walk on A's ``CompactOperands`` and W's parts (row l holds W[l, :]).
-    Given CPU tensors, the twin on the parts' sums."""
+    """``fused_lgcnhs_serve`` on ``kernel_operands``' value, along the walk
+    it holds, counted as its launches. Given CPU tensors, the twin on the
+    parts' sums."""
     U, I = user_emb.shape[0], item_emb.shape[0]
-    compact = isinstance(a_parts, CompactOperands)
-    if seen.dtype != torch.bool or tuple(seen.shape) != (U, I) or not 1 <= k <= I:
-        raise ValueError(f"fused_serve_parts: seen {tuple(seen.shape)} {seen.dtype}, k {k}")
+    if tuple(ops.seen.shape) != (U, I) or not 1 <= k <= I:
+        raise ValueError(f"fused_serve_parts: operands of {tuple(ops.seen.shape)} for tables "
+                         f"of {U} users and {I} items, k {k}")
     if user_emb.device.type == "cpu":
-        A = compact_dense(a_parts, U, I) if compact else a_parts.float().sum(0)[:, :I]
-        W = w_parts.float().sum(0)[:, :I]
-        return fused_lgcnhs_serve_ref(user_emb, item_emb, A, W if compact else W.T, seen, k)
+        A = compact_dense(ops.a, U, I) if ops.compact else ops.a.float().sum(0)[:, :I]
+        W = ops.w_parts.float().sum(0)[:, :I]
+        return fused_lgcnhs_serve_ref(user_emb, item_emb, A, W if ops.compact else W.T,
+                                      ops.seen, k)
     for name, t in (("user_emb", user_emb), ("item_emb", item_emb)):
         if t.dtype != torch.float32:
             raise TypeError(f"fused_serve_parts: {name} must be float32, got {t.dtype}")
-    ld = parts_ld(I)
-    if compact:
-        a_ok = (a_parts.col_ptr.shape == (-(-U // BLOCK_USERS) + 1,)
-                and a_parts.a_cols.numel() == BLOCK_USERS * a_parts.cols.numel()
-                and (a_parts.col_ptr.dtype, a_parts.cols.dtype, a_parts.a_cols.dtype)
-                == (torch.int32, torch.int32, torch.bfloat16))
-    else:
-        a_ok = a_parts.shape[1:] == (U, ld) and a_parts.dtype == torch.bfloat16
-    if not a_ok or w_parts.shape != (W_PARTS, I, ld) or w_parts.dtype != torch.bfloat16:
-        raise ValueError(f"fused_serve_parts: A's operands do not fit U {U}, or w_parts "
-                         f"{tuple(w_parts.shape)} {w_parts.dtype} does not fit I {I}")
-    ops = ServeOperands(_padded_t(user_emb), _padded_t(item_emb), a_parts, w_parts)
-    return _launch_counted(ops, seen, k)
+    serve = ServeOperands(_padded_t(user_emb), _padded_t(item_emb), ops.a, ops.w_parts,
+                          ops.compact)
+    return _launch_counted(serve, ops.seen, k)
 
 
 def _launch_counted(ops: ServeOperands, seen: torch.Tensor,
@@ -403,8 +463,10 @@ def _launch_counted(ops: ServeOperands, seen: torch.Tensor,
     U, I = seen.shape
     dense_rows = -(-U // BLOCK_USERS) * -(-I // CHUNK) * CHUNK
     count(fused_lgcnhs_serve, "k_rows_dense", dense_rows)
-    if isinstance(ops.a_parts, CompactOperands):
+    if ops.compact:
         count_launch(fused_lgcnhs_serve, "compact_launches")
+        # a value on the card: the read waits for the launch
+        count(fused_lgcnhs_serve, "k_rows", int(ops.a_parts.col_ptr[-1]))
     else:
         count(fused_lgcnhs_serve, "k_rows", dense_rows)
     return idx, vals
@@ -418,8 +480,7 @@ def launch_kernel(lib: ctypes.CDLL, fn, ops: ServeOperands, seen: torch.Tensor,
     D, U = ops.uT.shape[0], seen.shape[0]
     I = ops.w_parts.shape[1]
     dev = seen.device
-    compact = isinstance(ops.a_parts, CompactOperands)
-    plan = serve_plan(lib, U, I, k, 1 if compact else ops.a_parts.shape[0], dev)
+    plan = serve_plan(lib, U, I, k, 1 if ops.compact else ops.a_parts.shape[0], dev)
     seen8 = seen.contiguous().view(torch.uint8)
     idx = torch.empty((U, k), dtype=torch.int32, device=dev)
     vals = torch.empty((U, k), dtype=torch.float32, device=dev)
@@ -438,7 +499,7 @@ def launch_kernel(lib: ctypes.CDLL, fn, ops: ServeOperands, seen: torch.Tensor,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         a = ops.a_parts
-        if compact:
+        if ops.compact:
             rc = lib.fused_lgcnhs_serve_compact_launch(
                 *tables, a.a_cols.data_ptr(), a.col_ptr.data_ptr(), a.cols.data_ptr(), *rest,
                 stream)

@@ -1,8 +1,8 @@
 """Serving's kernel operands built from the train+val edges
-(``models/fusion.kernel_operands``): A's bf16 part and seen
-(``data/graph.positive_parts``), W^T's bf16 parts a block of items at a
-time (``ops/diffusion.edge_spreading``, ``transfer_block``,
-``ops/cuda/fusion_serve.split_rows_into``), on the CPU.
+(``ops/cuda/fusion_serve.kernel_operands``): A's bf16 part and seen
+(``fusion_serve.positive_parts``), W^T's bf16 parts a block of
+``fusion_serve.W_BLOCK`` items at a time (``ops/diffusion.edge_spreading``,
+``transfer_block``), on the CPU.
 
 - The blocks' W equals ``hybrid_transfer(A, general_spreading_matrix(A), l)``
   within f32 rounding: block widths that do and do not divide I, users and
@@ -92,7 +92,7 @@ def _params(seed=3):
 @pytest.mark.parametrize("block", [5, 16, I, 64])
 @pytest.mark.parametrize("lam", [0.0, 0.6, 1.0])
 @pytest.mark.parametrize("case", CASES)
-def test_block_w_equals_the_dense_transfer(case, lam, block):
+def test_block_w_equals_the_dense_transfer(monkeypatch, case, lam, block):
     edges = _edges(case)
     A, _ = tgraph.dense_positives(U, I, edges)
     want = hybrid_transfer(A, general_spreading_matrix(A), lam)
@@ -105,8 +105,10 @@ def test_block_w_equals_the_dense_transfer(case, lam, block):
     torch.testing.assert_close(got, want, rtol=8 * 2.0**-23, atol=0.0)
     assert torch.equal(got == 0, want == 0)
 
-    a_parts, w_parts, _ = fusion.kernel_operands(U, I, edges, lam, block=block)
-    ld = tserve.parts_ld(I)
+    monkeypatch.setattr(tserve, "W_BLOCK", block)
+    ops = tserve.kernel_operands(U, I, edges, lam)
+    w_parts, ld = ops.w_parts, tserve.parts_ld(I)
+    assert not ops.compact and ops.w_blocks == len(blocks)
     assert w_parts.shape == (3, I, ld) and w_parts.dtype == torch.bfloat16
     for j0, blk in zip(range(0, I, block), blocks):  # each block exactly, rows j of W^T
         rows = w_parts[:, j0:j0 + block].float()
@@ -119,7 +121,7 @@ def test_a_part_and_seen_equal_the_dense_build(case):
     edges = _edges(case)
     A, seen = tgraph.dense_positives(U, I, edges)
     ld = tserve.parts_ld(I)
-    a_parts, got_seen = tgraph.positive_parts(U, I, ld, edges)
+    a_parts, got_seen = tserve.positive_parts(U, I, edges)
     assert a_parts.shape == (1, U, ld) and a_parts.dtype == torch.bfloat16
     want = tserve.bf16_parts(A, 1, ld)
     assert a_parts.view(torch.int16).numpy().tobytes() == want.view(torch.int16).numpy().tobytes()
@@ -142,12 +144,13 @@ class _Made(TorchDispatchMode):
 
 
 @pytest.mark.parametrize("block", [5, 16, I - 1])
-def test_no_dense_f32_array_of_the_catalog(block):
+def test_no_dense_f32_array_of_the_catalog(monkeypatch, block):
     """At a block narrower than the catalog (at 4,096 items a block, every
     catalog past ML-1M's one block)."""
     edges = _edges("duplicates")
+    monkeypatch.setattr(tserve, "W_BLOCK", block)
     with _Made() as made:
-        a_parts, w_parts, seen = fusion.kernel_operands(U, I, edges, 0.6, block=block)
+        a_parts, w_parts, seen, _, _ = tserve.kernel_operands(U, I, edges, 0.6)
     wide = [(shape, dtype) for shape, dtype in made.made
             if dtype in (torch.float32, torch.float64) and shape in ((I, I), (U, I))]
     assert not wide, wide
@@ -173,7 +176,7 @@ def test_kernel_route_lists_match_the_reference(monkeypatch, case, lam):
     graph, cfg, params = _graph(*_case(case)), _cfg(lam), _params()
     plain = fusion.serve_fused(graph, cfg, params)
     _kernel_route(monkeypatch)
-    monkeypatch.setattr(fusion, "W_BLOCK", 16)
+    monkeypatch.setattr(tserve, "W_BLOCK", 16)
     got = fusion.serve_fused(graph, cfg, params)
     assert got.shape == (U, cfg.k) and got.dtype == np.int32
     users = np.arange(U)
@@ -199,7 +202,7 @@ def _parent(ev):
 def test_w_block_spans_and_counter(monkeypatch, block):
     graph, cfg, params = _graph(*_case("random")), _cfg(), _params()
     _kernel_route(monkeypatch)
-    monkeypatch.setattr(fusion, "W_BLOCK", block)
+    monkeypatch.setattr(tserve, "W_BLOCK", block)
     blocks = -(-I // block)
     before = (fusion.serve_fused.w_blocks, tserve.fused_lgcnhs_serve.split_launches)
     _, events = _profiled(lambda: fusion.serve_fused(graph, cfg, params))

@@ -1,7 +1,7 @@
 """Kernel 4's compacted walk, on the CPU: A restricted to each 128-user
 block's items (``ops/cuda/fusion_serve.compact_operands``), W's parts
-N-major a block of items at a time (``models/fusion.kernel_operands``),
-the rule that picks the walk (``models/fusion.compact_walk``), its
+N-major a block of items at a time (``fusion_serve.kernel_operands``),
+the rule that picks the walk (``fusion_serve.compact_walk``), its
 counters and the ``serve.contraction_share`` metric that reads them.
 
 - ``cols`` holds each block's sorted union of items, padded with item 0 to
@@ -105,7 +105,7 @@ def test_cols_hold_each_blocks_sorted_union(case):
 def test_a_cols_scatter_back_to_the_positive_parts_a(case):
     U, I, edges = _edges(case)
     ops = tserve.compact_operands(U, I, edges)
-    a_parts, _ = tgraph.positive_parts(U, I, tserve.parts_ld(I), edges)
+    a_parts, _ = tserve.positive_parts(U, I, edges)
     want = a_parts[0, :, :I].float()
     got = tserve.compact_dense(ops, U, I)
     assert got.view(torch.int32).numpy().tobytes() == want.view(torch.int32).numpy().tobytes()
@@ -148,7 +148,7 @@ def test_compacted_contraction_is_a_w(case, dyadic):
     ((52_583, 91_521, 2_686_468), True),  # amazonbook
 ])
 def test_the_walk_follows_the_input_density(shape, compact):
-    assert fusion.compact_walk(*shape) is compact
+    assert tserve.compact_walk(*shape) is compact
 
 
 class _Ops(TorchDispatchMode):
@@ -182,11 +182,12 @@ def test_the_build_waits_for_nothing(monkeypatch, what):
     """Two edge sets of the same size and other contents: no syncing
     operator, nothing made off the edges' device, and the same operators
     with the same shapes (no size that depends on the data)."""
-    monkeypatch.setattr(fusion, "compact_walk", lambda *args: True)
+    monkeypatch.setattr(tserve, "compact_walk", lambda *args: True)
+    monkeypatch.setattr(tserve, "W_BLOCK", 16)
     U, I, edges = _edges("random")
     other = torch.from_numpy(tgraph.edge_array(_random(8, edges.shape[1], U, I)))
     build = ((lambda e: tserve.compact_operands(U, I, e)) if what == "compact_operands"
-             else (lambda e: fusion.kernel_operands(U, I, e, 0.6, block=16)))
+             else (lambda e: tserve.kernel_operands(U, I, e, 0.6)))
     first, second = _recorded(lambda: build(edges)), _recorded(lambda: build(other))
     names = {name for name, _ in first}
     assert not names & SYNCING, names & SYNCING
@@ -196,9 +197,11 @@ def test_the_build_waits_for_nothing(monkeypatch, what):
 
 @pytest.mark.parametrize("block", [5, 16, 100, 128])
 def test_n_major_w_parts_hold_each_block_exactly(monkeypatch, block):
-    monkeypatch.setattr(fusion, "compact_walk", lambda *args: True)
+    monkeypatch.setattr(tserve, "compact_walk", lambda *args: True)
+    monkeypatch.setattr(tserve, "W_BLOCK", block)
     U, I, edges = _edges("duplicates")
-    a, w_parts, seen = fusion.kernel_operands(U, I, edges, 0.6, block=block)
+    a, w_parts, seen, compact, w_blocks = tserve.kernel_operands(U, I, edges, 0.6)
+    assert compact and w_blocks == -(-I // block)
     ld = tserve.parts_ld(I)
     assert w_parts.shape == (3, I, ld) and w_parts.dtype == torch.bfloat16
     assert torch.equal(w_parts[:, :, I:].float(), torch.zeros(3, I, ld - I))
@@ -215,9 +218,10 @@ def test_n_major_w_parts_hold_each_block_exactly(monkeypatch, block):
 
 def test_the_dense_walk_keeps_its_operands():
     U, I, edges = _edges("random")
-    assert not fusion.compact_walk(U, I, edges.shape[1])
-    a, w_parts, _ = fusion.kernel_operands(U, I, edges, 0.6)
-    assert isinstance(a, torch.Tensor) and a.shape == (1, U, tserve.parts_ld(I))
+    assert not tserve.compact_walk(U, I, edges.shape[1])
+    ops = tserve.kernel_operands(U, I, edges, 0.6)
+    assert not ops.compact and ops.w_blocks == 1
+    assert isinstance(ops.a, torch.Tensor) and ops.a.shape == (1, U, tserve.parts_ld(I))
 
 
 def _split(graph):
@@ -238,9 +242,9 @@ def test_compacted_serving_lists(monkeypatch, case, lam):
     params = LightGCNParams(0.1 * torch.randn(U, 8, generator=gen),
                             0.1 * torch.randn(I, 8, generator=gen))
     monkeypatch.setattr(fusion, "serve_route", lambda *args: "kernel")
-    monkeypatch.setattr(fusion, "W_BLOCK", 16)
+    monkeypatch.setattr(tserve, "W_BLOCK", 16)
     dense = fusion.serve_fused(graph, cfg, params)
-    monkeypatch.setattr(fusion, "compact_walk", lambda *args: True)
+    monkeypatch.setattr(tserve, "compact_walk", lambda *args: True)
     got = fusion.serve_fused(graph, cfg, params)
     np.testing.assert_array_equal(got, dense)
     scores = ref_serve.fused_scores(_split(graph), params.user_emb, params.item_emb, lam,
@@ -248,15 +252,21 @@ def test_compacted_serving_lists(monkeypatch, case, lam):
     assert judge.score_gap(got, scores) <= 1e-4
 
 
-def test_counters_are_the_kernels():
+def test_counters_are_the_kernels(monkeypatch):
     f = tserve.fused_lgcnhs_serve
     for name in ("compact_launches", "k_rows", "k_rows_dense"):
         assert isinstance(getattr(f, name), int)
     U, I, edges = _edges("random")
-    before = f.k_rows
-    tserve.count_k_rows(tserve.compact_operands(U, I, edges))  # off the card: no launch
-    tserve.count_k_rows(torch.zeros(1, U, 64, dtype=torch.bfloat16))  # a dense walk's part
-    assert f.k_rows == before
+    gen = torch.Generator().manual_seed(5)
+    ue, ie = torch.randn(U, 8, generator=gen), torch.randn(I, 8, generator=gen)
+    before = (f.launches, f.compact_launches, f.k_rows, f.k_rows_dense)
+    dense = tserve.kernel_operands(U, I, edges, 0.6)
+    monkeypatch.setattr(tserve, "compact_walk", lambda *args: True)
+    compact = tserve.kernel_operands(U, I, edges, 0.6)
+    assert (dense.compact, compact.compact) == (False, True)
+    for ops in (dense, compact):  # off the card: the twin, no launch
+        tserve.fused_serve_parts(ue, ie, ops, 5)
+    assert (f.launches, f.compact_launches, f.k_rows, f.k_rows_dense) == before
 
 
 def _read(counts):
