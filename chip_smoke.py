@@ -90,7 +90,8 @@ neither JAX nor ``lgcnhs_tpu``. Phases:
    branch, each chunk's ids held against the plain chain on the card);
    ``dual_matmul`` and a chunk's retrieval at these shapes against their
    twins (and ``dual_matmul`` against the exact f64 sums), timed; (b) 40
-   epochs at ``compute.dtype=float32``, the COO (bucketed-ELL) route; (c)
+   epochs at ``compute.dtype=float32``, the COO route (one
+   ``segment_pair`` launch a layer, 6 a step, counted); (c)
    the bf16-dense rung (``compute.use_pallas=false``) beside the kernel
    route over 20 epochs, within the JAX rung test's tolerance; the ML-1M
    stand-in forced into COO beside its dense f32 route, one seed. Launch
@@ -297,6 +298,22 @@ neither JAX nor ``lgcnhs_tpu``. Phases:
    fresh process (``compact_trace_child``: a profiler session loses card
    records late in a long process), one launch of each walk traced:
    ``fused_serve_kernel`` events equal ``fused_lgcnhs_serve.launches``.
+17. The COO training route's kernel (``segment_pair_phase``, last; a 90 s
+   budget, its time printed), on the Gowalla cell's train graph (29,741 x
+   40,848, 821,987 deduped edges from the benchmark's generator, items Zipf
+   0.9, the hottest item ~15.7 k edges: split rows): (a) ``segment_pair``
+   against its twin and against f64 sums of the same products, within
+   ``SEGMENT_REL_TOL`` of each output's scale, two launches bitwise equal,
+   one launch and one chunk-sum launch counted a call; (b) the layer mean
+   and its self-adjoint backward (3 + 3 launches) against the bucketed
+   library chain's forward and autograd backward, within
+   ``SEGMENT_REL_TOL`` of scale; (c) the kernel's ms (CUDA events) beside
+   its least time (8 nnz + 2 (U + I) D 4 bytes), the twin's ms and the
+   bucketed chain's (``library_ms``), and the same for a forward and
+   backward; (d) ``make_coo_train_scan`` on the segment graph, 3 epochs (the
+   first eager, then a graph of 2 replayed) bitwise equal to 3 eager steps
+   under the same capturable Adam and the deterministic algorithms, 6
+   launches an epoch on both.
 
 Prints one PASS/FAIL line per check, then (all passed) the kernel JSON line,
 the ``nvidia-smi`` name/power-limit line, and the final
@@ -454,6 +471,12 @@ BLOCK_W_REL_TOL = 1e-5
 SERVE_COMPACT_BUDGET_S = 90
 SERVE_COMPACT_SEED = 2_600_000_016
 SCORE_GAP_MAX = 1e-4
+# phase 17, the COO route's segment_pair kernel: its budget (printed), the
+# seed of the Gowalla input, and how far the kernel's f32 sums may sit from
+# the twin's and from f64 sums (another order of up to ~15.7 k terms)
+SEGMENT_BUDGET_S = 90
+SEGMENT_SEED = 2_600_000_017
+SEGMENT_REL_TOL = 1e-5
 GRAPH_TABLE_REL_TOL = 1e-5
 GRAPH_COO_EPOCHS = 5
 GRAPH_TIMING_EPOCHS = 200
@@ -689,6 +712,7 @@ def large_graph_phase(check, dev, smi, clock):
     from lgcnhs_tpu_torch.ops.cuda import fusion_serve as fs
     from lgcnhs_tpu_torch.ops.cuda import propagation as prop
     from lgcnhs_tpu_torch.ops.cuda import retrieval as rt
+    from lgcnhs_tpu_torch.ops.cuda import segment_propagation as seg
     from lgcnhs_tpu_torch.ops.topk import MASK_VALUE, masked_topk
     from lgcnhs_tpu_torch.train import trainer
 
@@ -884,9 +908,13 @@ def large_graph_phase(check, dev, smi, clock):
     # (b) and (c) chunks of half the run, so that the second replays the
     # first's graph (epoch 1 eager, then a graph of the rest), for the window
     half = {"compute.scan_chunk": COO_EPOCHS // 2}
+    before = seg.segment_pair.launches
     run("(b)", cfg_for(**{"compute.dtype": "float32", "hparams.epochs": COO_EPOCHS}, **half), g,
         (uf, itf), COO_EPOCHS // 2 + 1, COO_EPOCHS - 1,
-        {"route": "COO bucketed + CSR eval", "iters": [0], "fused_topk_retrieval": n_chunks})
+        {"route": "COO segment_pair + CSR eval", "iters": [0], "fused_topk_retrieval": n_chunks})
+    check(f"large graph (b): the COO route launched segment_pair 6 a step ({COO_EPOCHS} steps)",
+          seg.segment_pair.launches - before == 6 * COO_EPOCHS,
+          f"{seg.segment_pair.launches - before} launches")
     torch.cuda.empty_cache()
 
     # (c) the bf16-dense rung (use_pallas=false) beside the kernel route, the
@@ -2604,6 +2632,145 @@ def serve_compact_phase(check, dev, smi):
             "peak_gib": {"compacted": peak_c / 2**30, "dense": peak_d / 2**30},
             "score_gap": {"compacted": gaps[0], "dense": gaps[1]}, "agreement": agreement,
             "trace": traced, "smi": smi}
+
+
+def segment_pair_phase(check, dev, smi):
+    """Phase 17 (module docstring): the COO training route's segment_pair
+    kernel on the Gowalla cell's train graph. Returns its row."""
+    import numpy as np
+    import torch
+
+    from lgcnhs_tpu_torch.data.graph import unique_edges
+    from lgcnhs_tpu_torch.models.lightgcn import LightGCNParams, init_lightgcn
+    from lgcnhs_tpu_torch.ops.cuda import segment_propagation as seg
+    from lgcnhs_tpu_torch.ops.propagation import (
+        bucketed_pair, build_bucketed_incidence, edge_gcn_norm, lightgcn_propagate_bucketed,
+    )
+    from lgcnhs_tpu_torch.ops.scalable import csr_keys, user_csr
+    from lgcnhs_tpu_torch.train import trainer
+    from portbench import harness, problem
+
+    f = seg.segment_pair
+    config = harness.config_file("gowalla")
+    rows = problem.table(config, SEGMENT_SEED)
+    cfg, graph = problem.program_graph(config, rows, SEGMENT_SEED,
+                                       tempfile.mkdtemp(prefix="segment_"))
+    U, I, D = graph.n_users, graph.n_items, cfg.hparams.embedding_dim
+    te = unique_edges(graph.train)
+    E = te.n_edges
+    eu = torch.from_numpy(te.users.astype(np.int64)).to(dev)
+    ei = torch.from_numpy(te.items.astype(np.int64)).to(dev)
+    norm = edge_gcn_norm(eu, ei, U, I)
+    t0 = time.perf_counter()
+    csr = seg.build_segment_graph(eu, ei, norm, U, I)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    hottest = int(torch.diff(csr.rowptr).max())
+    gen = torch.Generator(device=dev).manual_seed(SEGMENT_SEED)
+    x_u = 0.1 * torch.randn((U, D), generator=gen, device=dev)
+    x_i = 0.1 * torch.randn((I, D), generator=gen, device=dev)
+
+    def rel(outs, refs):
+        return max(((a.double() - r.double()).abs().max() / r.double().abs().max()).item()
+                   for a, r in zip(outs, refs))
+
+    # (a) the pair against the twin and f64 sums; two launches; the counters
+    before = (f.launches, f.reduce_launches)
+    got = seg.segment_pair(csr, x_u, x_i)
+    again = seg.segment_pair(csr, x_u, x_i)
+    torch.cuda.synchronize()
+    counted = (f.launches - before[0], f.reduce_launches - before[1])
+    twin = seg.segment_pair_ref(csr, x_u, x_i)
+    ref64 = seg.segment_pair_ref(csr, x_u.double(), x_i.double())
+    gaps = {"twin": rel(got, twin), "f64": rel(got, ref64), "twin_f64": rel(twin, ref64)}
+    print(f"[phase 17] Gowalla train graph {U} x {I}, {E} edges, hottest row {hottest}, "
+          f"{csr.units.shape[0]} units, {csr.splits.shape[0]} split rows, {csr.n_slots} slots, "
+          f"built in {build_s:.3f} s; gaps {json.dumps(gaps)}", flush=True)
+    check(f"phase 17 (a): segment_pair within {SEGMENT_REL_TOL:g} of scale of its twin and of "
+          "f64 sums", gaps["twin"] <= SEGMENT_REL_TOL and gaps["f64"] <= SEGMENT_REL_TOL,
+          json.dumps(gaps))
+    check("phase 17 (a): two segment_pair launches bitwise equal",
+          all(torch.equal(a, b) for a, b in zip(got, again)))
+    check("phase 17 (a): the graph has split rows, and each call counted one launch and one "
+          "chunk-sum launch", csr.splits.shape[0] > 0 and counted == (2, 2), f"{counted}")
+    del got, again, twin, ref64
+
+    # (b) the layer mean and its backward against the bucketed library chain
+    binc = build_bucketed_incidence(te.users, te.items, norm.cpu().numpy(), U, I, device=dev)
+    cot = [0.1 * torch.randn(t.shape, generator=gen, device=dev) for t in (x_u, x_i)]
+
+    def mean_and_grads(propagate):
+        a, b = (t.clone().requires_grad_(True) for t in (x_u, x_i))
+        out = propagate(a, b)
+        grads = torch.autograd.grad(out, (a, b), cot)
+        return [t.detach() for t in out], list(grads)
+
+    before = f.launches
+    k_out, k_grads = mean_and_grads(lambda a, b: seg.lightgcn_propagate_segments(a, b, csr, 3))
+    torch.cuda.synchronize()
+    mean_launches = f.launches - before
+    b_out, b_grads = mean_and_grads(lambda a, b: lightgcn_propagate_bucketed(a, b, binc, 3))
+    mean_gaps = {"forward": rel(k_out, b_out), "backward": rel(k_grads, b_grads)}
+    check(f"phase 17 (b): the layer mean and its self-adjoint backward within "
+          f"{SEGMENT_REL_TOL:g} of scale of the bucketed chain's, 3 + 3 launches",
+          max(mean_gaps.values()) <= SEGMENT_REL_TOL and mean_launches == 6,
+          f"{json.dumps(mean_gaps)}, {mean_launches} launches")
+    del k_out, k_grads, b_out, b_grads
+
+    # (c) times: the pair, and a forward with its backward
+    pair_b = bucketed_pair(binc)
+    bound_ms, bound_by = bound(8 * E + 2 * (U + I) * D * 4, 4 * E * D, PEAK_BF16_FLOP_PER_S)
+    times = {
+        "ms": median_ms(torch, lambda: seg.segment_pair(csr, x_u, x_i), 20),
+        "plain_ms": median_ms(torch, lambda: seg.segment_pair_ref(csr, x_u, x_i), 5),
+        "library_ms": median_ms(torch, lambda: pair_b(x_u, x_i), 5),
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "mean_fwd_bwd_ms": median_ms(torch, lambda: mean_and_grads(
+            lambda a, b: seg.lightgcn_propagate_segments(a, b, csr, 3)), 10),
+        "library_mean_fwd_bwd_ms": median_ms(torch, lambda: mean_and_grads(
+            lambda a, b: lightgcn_propagate_bucketed(a, b, binc, 3)), 5),
+    }
+    times["roofline_pct"] = 100 * bound_ms / times["ms"]
+    print(f"[phase 17] times {json.dumps(times)} [{smi}]", flush=True)
+    del binc, pair_b
+
+    # (d) the COO train step on the segment graph: a graph replay against
+    # eager steps under the same capturable Adam
+    hp = cfg.hparams
+    keys = csr_keys(*user_csr(U, te), dev)
+    rest = (csr, eu, ei, keys)
+    runs = {}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for route in ("graph", "eager"):
+            p0 = init_lightgcn(torch.Generator().manual_seed(SEED), U, I, D, dev)
+            p = LightGCNParams(*(t.clone().requires_grad_(True) for t in p0))
+            opt = trainer.make_optimizer(hp, p, capturable=True)
+            before = f.launches
+            if route == "graph":
+                scan = trainer.make_coo_train_scan(opt, hp, I)
+                loss = scan(p, hp.seed, 0, 3, *rest)
+                torch.cuda.synchronize()
+                captures = scan.captures
+                scan.release()
+            else:
+                step = trainer.make_coo_train_step(opt, hp, I)
+                for e in range(3):
+                    loss = step(p, e, trainer.epoch_generator(hp.seed, e, dev), *rest)
+                torch.cuda.synchronize()
+            runs[route] = (p, float(loss), f.launches - before)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    bitwise = all(torch.equal(a, b) for a, b in zip(runs["graph"][0], runs["eager"][0]))
+    check("phase 17 (d): the COO step on the segment graph, 3 epochs (a graph of 2 replayed) "
+          "bitwise equal to eager steps, 6 launches an epoch on both",
+          bitwise and runs["graph"][1] == runs["eager"][1] and runs["graph"][2] == 18
+          and runs["eager"][2] == 18 and captures and captures[0][0] == 2,
+          f"losses {runs['graph'][1]} / {runs['eager'][1]}, launches {runs['graph'][2]} / "
+          f"{runs['eager'][2]}, captures {captures}")
+    return {"shape": [U, I, D, E], "hottest_row": hottest, "units": int(csr.units.shape[0]),
+            "split_rows": int(csr.splits.shape[0]), "build_s": build_s, "gaps": gaps,
+            "mean_gaps": mean_gaps, **times, "smi": smi}
 
 
 def trace_summary(trace_dir):
@@ -4508,6 +4675,14 @@ def main() -> int:
     if phase16:
         print(f"[phase 16] {time.perf_counter() - t0:.1f} s (budget {SERVE_COMPACT_BUDGET_S} s); "
               f"row {json.dumps(phase16)}", flush=True)
+
+    # -- 17. the COO training route's segment_pair kernel -------------------------
+    print(f"[phase 17] segment_pair on the Gowalla train graph on {smi}", flush=True)
+    t0 = time.perf_counter()
+    phase17 = check.guard("phase 17", segment_pair_phase, check, dev, smi)
+    if phase17:
+        print(f"[phase 17] {time.perf_counter() - t0:.1f} s (budget {SEGMENT_BUDGET_S} s); "
+              f"row {json.dumps(phase17)}", flush=True)
 
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
     if check.failures:

@@ -17,9 +17,11 @@ and the final embedding is the mean over layers 0..K
   nodes grouped by quantized degree into padded neighbor matrices,
   aggregated by gathers and dense sums, with the self-adjoint backward
   (``SelfAdjointPair``), so neither pass scatters over the edge list; the
-  large-graph (COO) train step runs it. The layout exists for the TPU's
-  gather and scatter costs (``docs/PERF.md``, "Large-graph (COO)
-  training"); it is ported for parity, arrays identical to JAX's.
+  large-graph (COO) train step runs it where the ``segment_pair`` kernel
+  (``ops/cuda/segment_propagation``) does not: the CPU, ``use_pallas``
+  off, f64 tables. The layout exists for the TPU's gather and scatter
+  costs (``docs/PERF.md``, "Large-graph (COO) training"); it is ported for
+  parity, arrays identical to JAX's.
 
 - sorted segments (``build_edge_ordering``, ``lightgcn_propagate_coo_sorted``):
   the edge list kept sorted by user and by item, each node's messages
@@ -223,6 +225,11 @@ class BucketedSide(NamedTuple):
 class BucketedIncidence(NamedTuple):
     users: BucketedSide  # aggregates item vectors INTO users
     items: BucketedSide  # aggregates user vectors INTO items
+
+    def propagate(self, user_emb: torch.Tensor, item_emb: torch.Tensor,
+                  n_layers: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The layer mean over this layout (``lightgcn_propagate_bucketed``)."""
+        return lightgcn_propagate_bucketed(user_emb, item_emb, self, n_layers)
 
 
 def _bucket_caps(deg: np.ndarray, min_cap: int, quantum: int = 8) -> np.ndarray:

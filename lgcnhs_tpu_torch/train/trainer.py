@@ -40,8 +40,13 @@ model, bitwise on the CPU. Training routes, chosen as JAX chooses
   (``data/graph.device_bf16_incidence``) where the f32 one would pass
   ``HOST_INCIDENCE_BUILD_BYTES``;
 - COO: past the 4 GB incidence budget or below ``compute.dense_threshold``,
-  the bucketed-ELL layout with its self-adjoint backward
-  (``ops/propagation.lightgcn_propagate_bucketed``).
+  the layer mean over the edge list with its self-adjoint backward: on
+  CUDA with ``compute.use_pallas`` and f32 tables, one ``segment_pair``
+  kernel launch a layer over the edges sorted by destination
+  (``ops/cuda/segment_propagation``); otherwise the bucketed-ELL layout
+  (``ops/propagation.lightgcn_propagate_bucketed``), which JAX's COO route
+  mirrors. The step asks the operand for its propagation
+  (``SegmentGraph.propagate``, ``BucketedIncidence.propagate``).
 
 Where the f32 (U, I) eval arrays would pass ``DENSIFY_BUDGET_BYTES`` (and on
 every COO run), nothing but the train incidence is O(U*I): negatives are
@@ -113,11 +118,11 @@ from lgcnhs_tpu_torch.ops.cuda.propagation import (
     pad_for_dual,
     release_workspace,
 )
+from lgcnhs_tpu_torch.ops.cuda.segment_propagation import build_segment_graph
 from lgcnhs_tpu_torch.ops.propagation import (
     build_bucketed_incidence,
     edge_gcn_norm,
     lightgcn_propagate,
-    lightgcn_propagate_bucketed,
     lightgcn_propagate_coo,
 )
 from lgcnhs_tpu_torch.ops.scalable import (
@@ -518,9 +523,8 @@ def _coo_update(optimizer, hp, n_items: int, neg_hi: Optional[int]):
     def sample(generator, edge_users, edge_items, keys):
         return sample_bpr_batch_csr(generator, edge_users, edge_items, keys, hp.batch_size, hi)
 
-    def loss_of(params, binc, users, pos_items, neg_items):
-        u_final, i_final = lightgcn_propagate_bucketed(params.user_emb, params.item_emb, binc,
-                                                       hp.layers)
+    def loss_of(params, graph_op, users, pos_items, neg_items):
+        u_final, i_final = graph_op.propagate(params.user_emb, params.item_emb, hp.layers)
         return _bpr_of_finals(params, u_final, i_final, users, pos_items, neg_items,
                               hp.epsilon)
 
@@ -529,17 +533,18 @@ def _coo_update(optimizer, hp, n_items: int, neg_hi: Optional[int]):
 
 def make_coo_train_step(optimizer, hp, n_items: int, neg_hi: Optional[int] = None):
     """The large-graph step (JAX ``make_coo_train_step``): the forward and
-    the backward over the bucketed incidence of ``build_bucketed_incidence``
-    (gathers and dense sums only), negatives rejected against CSR keys; the
-    edges keep their original order, so the triples are the dense
-    sampler's."""
+    the backward through the graph operand's own propagation, the
+    ``segment_pair`` kernel's ``SegmentGraph`` or the bucketed incidence of
+    ``build_bucketed_incidence`` (gathers and sums only, nothing scatters),
+    negatives rejected against CSR keys; the edges keep their original
+    order, so the triples are the dense sampler's."""
     return _epoch_step(hp, _coo_update(optimizer, hp, n_items, neg_hi))
 
 
 def make_coo_train_scan(optimizer, hp, n_items: int, neg_hi: Optional[int] = None) -> TrainScan:
     """``make_coo_train_step`` over ``n_steps`` epochs (JAX
     ``make_coo_train_scan``): ``train_scan(params, seed, epoch0, n_steps,
-    binc, edge_users, edge_items, keys)`` (``TrainScan``)."""
+    graph_op, edge_users, edge_items, keys)`` (``TrainScan``)."""
     return TrainScan(optimizer, hp, _coo_update(optimizer, hp, n_items, neg_hi))
 
 
@@ -660,11 +665,16 @@ def train_lightgcn(
     neg_hi_train, neg_hi_val, val_reject_uid = _negative_ranges(graph, hp)
 
     if propagation == "coo":
-        graph_op = build_bucketed_incidence(
-            train_es.users, train_es.items,
-            edge_gcn_norm(edge_users, edge_items, U, I).cpu().numpy(), U, I, device=device)
-        log.info("training %s: graph too large/sparse to densify, COO propagation "
-                 "(bucketed-ELL aggregation) on %s", model_name, device)
+        edge_norm = edge_gcn_norm(edge_users, edge_items, U, I)
+        if _kernel and dtype == torch.float32:
+            graph_op = build_segment_graph(edge_users, edge_items, edge_norm, U, I)
+            layout = "one segment_pair CUDA kernel a layer over the sorted edges"
+        else:
+            graph_op = build_bucketed_incidence(train_es.users, train_es.items,
+                                                edge_norm.cpu().numpy(), U, I, device=device)
+            layout = "bucketed-ELL aggregation"
+        log.info("training %s: graph too large/sparse to densify, COO propagation (%s) on %s",
+                 model_name, layout, device)
     elif _kernel and _bf16 and fits_dual(hp.embedding_dim, device):
         R8, du_inv, di_inv = device_binary_factors(U, I, graph.train, device)
         # the kernel reads R's rows in 16-byte copies; the incidence is
