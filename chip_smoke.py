@@ -298,7 +298,7 @@ neither JAX nor ``lgcnhs_tpu``. Phases:
    fresh process (``compact_trace_child``: a profiler session loses card
    records late in a long process), one launch of each walk traced:
    ``fused_serve_kernel`` events equal ``fused_lgcnhs_serve.launches``.
-17. The COO training route's kernel (``segment_pair_phase``, last; a 90 s
+17. The COO training route's kernel (``segment_pair_phase``, after phase 16; a 90 s
    budget, its time printed), on the Gowalla cell's train graph (29,741 x
    40,848, 821,987 deduped edges from the benchmark's generator, items Zipf
    0.9, the hottest item ~15.7 k edges: split rows): (a) ``segment_pair``
@@ -314,6 +314,19 @@ neither JAX nor ``lgcnhs_tpu``. Phases:
    first eager, then a graph of 2 replayed) bitwise equal to 3 eager steps
    under the same capturable Adam and the deterministic algorithms, 6
    launches an epoch on both.
+18. LightGCN[Opti] serving (``retrieve_serving_phase``, last; a 60 s
+   budget, its time printed), through ``recommend_gcn`` on the
+   ml1m-retrieve-k1000 cell's input (6,040 x 3,706, k=1000, ~905 k
+   train+val rows from the benchmark's generator): (a) on dyadic tables
+   (exact scores, many ties) its ids bitwise equal to the plain f32 chain
+   with TF32 off (``masked_topk(ue @ ie^T)``), and one pass counted as one
+   ``fused_topk_kernel`` launch, one merge, one pass and 8 n bytes; (b) on
+   the cell's tables its ids bitwise equal to the path it replaced (a host
+   seen through ``retrieve_topk``, the same kernel), and its and the plain
+   chain's lists within ``score_gap`` 1e-4 of float64 over every user; (c)
+   a pass's ms and, from a trace of 5 passes, its split across the
+   ``retrieve.*`` spans, the kernel's and the merge's device ms, and the
+   cell's readers: ``fused_topk_roofline`` in (0, 100).
 
 Prints one PASS/FAIL line per check, then (all passed) the kernel JSON line,
 the ``nvidia-smi`` name/power-limit line, and the final
@@ -477,6 +490,11 @@ SCORE_GAP_MAX = 1e-4
 SEGMENT_BUDGET_S = 90
 SEGMENT_SEED = 2_600_000_017
 SEGMENT_REL_TOL = 1e-5
+# phase 18, LightGCN[Opti] serving through recommend_gcn: its budget
+# (printed), the seed of the cell's input and tables, the passes traced
+RETRIEVE_BUDGET_S = 60
+RETRIEVE_SEED = 2_600_000_018
+RETRIEVE_TRACED = 5
 GRAPH_TABLE_REL_TOL = 1e-5
 GRAPH_COO_EPOCHS = 5
 GRAPH_TIMING_EPOCHS = 200
@@ -2773,6 +2791,106 @@ def segment_pair_phase(check, dev, smi):
             "mean_gaps": mean_gaps, **times, "smi": smi}
 
 
+def retrieve_serving_phase(check, dev, smi):
+    """Phase 18 (module docstring): LightGCN[Opti] serving through
+    ``recommend_gcn`` at the ml1m-retrieve-k1000 cell's shapes. Returns its
+    row."""
+    import numpy as np
+    import torch
+
+    from lgcnhs_tpu_torch.data.graph import pos_bool_matrix
+    from lgcnhs_tpu_torch.models import recommenders as rec_mod
+    from lgcnhs_tpu_torch.models.lightgcn import LightGCNParams
+    from lgcnhs_tpu_torch.ops.cuda.retrieval import fused_topk_retrieval as f
+    from lgcnhs_tpu_torch.ops.topk import masked_topk, retrieve_topk
+    from portbench import harness, problem
+    from portbench import trace as tracing
+    from portbench.drivers.serve import shapes, tables
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    config = harness.config_file("ml1m-lightgcnopti")
+    rows = problem.table(config, RETRIEVE_SEED)
+    cfg, graph = problem.program_graph(config, rows, RETRIEVE_SEED,
+                                       tempfile.mkdtemp(prefix="retrieve_"))
+    U, I, k = graph.n_users, graph.n_items, cfg.k
+    n = graph.train.n_edges + graph.val.n_edges
+    seen = torch.from_numpy(pos_bool_matrix(U, I, graph.train, graph.val)).to(dev)
+    rng = np.random.default_rng(RETRIEVE_SEED)
+    dyadic = [torch.from_numpy((rng.integers(-4, 5, (m, 64)) / 8).astype(np.float32)).to(dev)
+              for m in (U, I)]
+    cell = tables(config, RETRIEVE_SEED, U, I, dev)
+    rec_mod.recommend_gcn(graph, cfg, LightGCNParams(*cell))  # builds and loads the kernel
+    torch.cuda.synchronize(dev)
+
+    # (a) dyadic tables (exact scores, many ties): the plain f32 chain's ids
+    before = (f.launches, f.merge_launches, rec_mod.recommend_gcn.passes,
+              rec_mod.recommend_gcn.h2d_bytes)
+    got = rec_mod.recommend_gcn(graph, cfg, LightGCNParams(*dyadic))
+    counted = (f.launches - before[0], f.merge_launches - before[1],
+               rec_mod.recommend_gcn.passes - before[2], rec_mod.recommend_gcn.h2d_bytes - before[3])
+    want = masked_topk(dyadic[0] @ dyadic[1].T, seen, k).cpu().numpy()
+    check(f"phase 18 (a): recommend_gcn's ids at {U} x {I}, k={k} bitwise equal to the plain f32 "
+          "chain (TF32 off) on exact scores", np.array_equal(got, want),
+          f"{int((got != want).sum())} mismatched slots")
+    check("phase 18 (a): one pass counted one fused_topk_kernel launch, one merge, one pass "
+          "and 8 n bytes", counted == (1, 1, 1, 8 * n), f"{counted}, n {n}")
+
+    # (b) the cell's tables: the pre-change path's ids (host seen, the same
+    # kernel) bitwise; the plain chain's within score_gap of float64
+    got = rec_mod.recommend_gcn(graph, cfg, LightGCNParams(*cell))
+    before_path = retrieve_topk(*cell, seen, k).cpu().numpy()
+    chain = masked_topk(cell[0] @ cell[1].T, seen, k).cpu().numpy()
+    ref = (cell[0].double() @ cell[1].double().T).masked_fill(seen, -math.inf)
+    best = torch.topk(ref, k, dim=1).values
+
+    def gap(lists):
+        served = ref.gather(1, torch.from_numpy(lists.astype(np.int64)).to(dev))
+        return float(((best - served) / best[:, :1].abs()).max())
+
+    gaps = {"kernel": gap(got), "chain": gap(chain),
+            "chain_mismatched_slots": int((got != chain).sum())}
+    check("phase 18 (b): recommend_gcn's ids on the cell's tables bitwise equal to the host-seen "
+          "retrieve_topk path's", np.array_equal(got, before_path),
+          f"{int((got != before_path).sum())} mismatched slots")
+    check(f"phase 18 (b): the kernel's and the plain chain's lists within score_gap "
+          f"{SCORE_GAP_MAX:g} of float64 over all {U} users", max(gaps["kernel"], gaps["chain"])
+          <= SCORE_GAP_MAX, json.dumps(gaps))
+    del ref, best
+
+    # (c) a pass's time and its split across the spans, from a trace of
+    # RETRIEVE_TRACED passes; the cell's readers on it
+    t0 = time.perf_counter()
+    for _ in range(RETRIEVE_TRACED):
+        rec_mod.recommend_gcn(graph, cfg, LightGCNParams(*cell))
+    pass_ms = (time.perf_counter() - t0) / RETRIEVE_TRACED * 1e3
+    launches0 = f.launches
+    session = tracing.Session(True)
+    ns0 = time.time_ns()
+    for _ in range(RETRIEVE_TRACED):
+        rec_mod.recommend_gcn(graph, cfg, LightGCNParams(*cell))
+    torch.cuda.synchronize(dev)
+    session.stop()
+    view = tracing.collect(session, (ns0, session.stopped_ns))
+    names = ("retrieve.pass", "retrieve.build", "retrieve.upload", "retrieve.rank",
+             "retrieve.download")
+    span_ms = {name: sum(e - s for op, s, e in view.host_ops if op == name) / 1e6
+               / RETRIEVE_TRACED for name in names}
+    kernel_ms = {frag: sum(e - s for _, s, e in view.kernels_named(frag)) / 1e6 / RETRIEVE_TRACED
+                 for frag in ("fused_topk_kernel", "part_lists_merge_kernel")}
+    ctx = harness.Context(view, {}, shapes(config, problem.reference_split(config, rows)),
+                          harness.peaks(), {"fused_topk_retrieval": f.launches - launches0})
+    readings = {m: harness.load_metric(m).read(ctx)
+                for m in ("fused_topk_roofline", "retrieve.build_share")}
+    print(f"[phase 18] {U} x {I}, k={k}: {pass_ms:.3f} ms a pass untraced; a traced pass's "
+          f"spans (host ms) {json.dumps(span_ms)}, kernels (device ms) {json.dumps(kernel_ms)}, "
+          f"readers {json.dumps(readings)} [{smi}]", flush=True)
+    check("phase 18 (c): fused_topk_roofline reads in (0, 100) on the traced passes",
+          readings["fused_topk_roofline"] is not None
+          and 0 < readings["fused_topk_roofline"] < 100, json.dumps(readings))
+    return {"shape": [U, I, 64, k, n], "pass_ms": pass_ms, "span_ms": span_ms,
+            "kernel_ms": kernel_ms, "gaps": gaps, **readings, "smi": smi}
+
+
 def trace_summary(trace_dir):
     """(trace files, events, events by category, card kernel names, MB) of a
     ``--profile`` directory; events only when it holds one file."""
@@ -4683,6 +4801,15 @@ def main() -> int:
     if phase17:
         print(f"[phase 17] {time.perf_counter() - t0:.1f} s (budget {SEGMENT_BUDGET_S} s); "
               f"row {json.dumps(phase17)}", flush=True)
+
+    # -- 18. LightGCN[Opti] serving through recommend_gcn -------------------------
+    print(f"[phase 18] recommend_gcn at the ml1m-retrieve-k1000 cell's shapes on {smi}",
+          flush=True)
+    t0 = time.perf_counter()
+    phase18 = check.guard("phase 18", retrieve_serving_phase, check, dev, smi)
+    if phase18:
+        print(f"[phase 18] {time.perf_counter() - t0:.1f} s (budget {RETRIEVE_BUDGET_S} s); "
+              f"row {json.dumps(phase18)}", flush=True)
 
     print(f"[done] {time.perf_counter() - t_start:.1f} s", flush=True)
     if check.failures:

@@ -6,8 +6,10 @@ it is missing or its shape mismatches), serves every user over the full catalog
 with train+val positives masked, and writes the (U, k) recommendation matrix
 to ``<workdir>/<dataset>/recommend/retrieval_<model>_<k>.npy``.
 
-- LightGCN / LightGCNOpti: ``ops.topk.retrieve_topk`` (fused retrieval
-  kernel on CUDA).
+- LightGCN / LightGCNOpti: ``models.recommenders.recommend_gcn``, the
+  one LightGCN[Opti] serving path (seen set on the card from the edges,
+  the fused retrieval kernel on CUDA; chunked past the dense budget,
+  sharded with a mesh), where JAX calls ``retrieve_topk`` on a host seen.
 - SpreadLightGCN / SpreadLightGCNOpti: ``models.fusion.serve_fused`` (fused
   LGCNHS serving kernel on CUDA; ``--serve-exact`` takes the plain chain).
 
@@ -24,14 +26,11 @@ import json
 import os
 
 import numpy as np
-import torch
 
 from lgcnhs_tpu_torch.cli.common import base_parser, config_from_args, load_pipeline
-from lgcnhs_tpu_torch.data.graph import pos_bool_matrix
 from lgcnhs_tpu_torch.data.idmap import IdMapper
 from lgcnhs_tpu_torch.models.fusion import serve_fused
-from lgcnhs_tpu_torch.models.recommenders import get_or_train_params
-from lgcnhs_tpu_torch.ops.topk import retrieve_topk
+from lgcnhs_tpu_torch.models.recommenders import get_or_train_params, recommend_gcn
 from lgcnhs_tpu_torch.runtime.device import resolve_device
 from lgcnhs_tpu_torch.runtime.logging import get_logger
 
@@ -58,10 +57,7 @@ def main(argv=None) -> np.ndarray:
     if cfg.model in ("SpreadLightGCN", "SpreadLightGCNOpti"):
         rec = serve_fused(graph, cfg, params, exact=args.serve_exact)
     else:
-        seen = torch.from_numpy(
-            pos_bool_matrix(graph.n_users, graph.n_items, graph.train, graph.val)
-        ).to(device)
-        rec = retrieve_topk(params.user_emb, params.item_emb, seen, cfg.k).cpu().numpy()
+        rec = recommend_gcn(graph, cfg, params)
     out = os.path.join(cfg.recommend_path, f"retrieval_{cfg.model}_{cfg.k}.npy")
     np.save(out, rec)
     log.info("retrieval matrix saved: %s %s", out, rec.shape)

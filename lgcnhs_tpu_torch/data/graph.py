@@ -3,8 +3,9 @@
 Port of ``lgcnhs_tpu/data/graph.py``: interactions stay as flat (user,
 item) index arrays, and the dense U x I incidence is built once, vectorized
 (reference ``utils/trans.py:13-116``); the large-graph rung's bf16
-incidence (``device_bf16_incidence``) and serving's A and seen
-(``dense_positives``) are set on the device from the edges.
+incidence (``device_bf16_incidence``), serving's A and seen
+(``dense_positives``) and retrieval's seen (``dense_seen``) are set on the
+device from the edges.
 """
 from __future__ import annotations
 
@@ -102,18 +103,28 @@ def edge_array(*edge_sets: EdgeSet) -> np.ndarray:
     return edges
 
 
+def _filled(n_users: int, n_items: int, edges: torch.Tensor, dtype: torch.dtype, one):
+    """A zeroed (U, I) ``dtype`` matrix on ``edges``' device with ``one`` at
+    each row of an ``edge_array``. Each row's flat index u I + i is taken
+    in int64 (U I passes 2^31 at catalogs already served); a duplicate row
+    fills the same entry again. The ids are the graph's, in range."""
+    M = torch.zeros((n_users, n_items), dtype=dtype, device=edges.device)
+    M.view(-1).index_fill_(0, edges[0].long() * n_items + edges[1], one)
+    return M
+
+
 def dense_positives(n_users: int, n_items: int, edges: torch.Tensor):
     """(A, seen) set on ``edges``' device from an ``edge_array``: the f32 0/1
     ``interaction_matrix`` and the bool ``pos_bool_matrix`` of the same
-    rows, bit for bit. Each row's flat index u I + i is taken in int64 (U I
-    passes 2^31 at catalogs already served) and filled with 1 in a zeroed
-    A; a duplicate row fills the same 1 again. The ids are the graph's, in
-    range."""
-    A = torch.zeros((n_users, n_items), dtype=torch.float32, device=edges.device)
-    flat = edges[0].long() * n_items + edges[1]
-    A.view(-1).index_fill_(0, flat, 1.0)
-    del flat
+    rows, bit for bit."""
+    A = _filled(n_users, n_items, edges, torch.float32, 1.0)
     return A, A != 0
+
+
+def dense_seen(n_users: int, n_items: int, edges: torch.Tensor) -> torch.Tensor:
+    """The bool ``pos_bool_matrix`` of an ``edge_array``'s rows, set on
+    ``edges``' device by ``dense_positives``' fill, with no f32 A."""
+    return _filled(n_users, n_items, edges, torch.bool, True)
 
 
 def item_degrees(n_items: int, *edge_sets: EdgeSet) -> np.ndarray:

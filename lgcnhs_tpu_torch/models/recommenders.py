@@ -15,14 +15,17 @@ import numpy as np
 import torch
 
 from lgcnhs_tpu_torch.config import Config
-from lgcnhs_tpu_torch.data.graph import EdgeSet, InteractionGraph, pos_bool_matrix
+from lgcnhs_tpu_torch.data.graph import (
+    EdgeSet, InteractionGraph, dense_seen, edge_array, pos_bool_matrix,
+)
 from lgcnhs_tpu_torch.models.fusion import recommend_fused
 from lgcnhs_tpu_torch.models.lightgcn import LightGCNParams
 from lgcnhs_tpu_torch.models.spread import SPREAD_METHODS, recommend_spread_method
+from lgcnhs_tpu_torch.ops.cuda.launches import count
 from lgcnhs_tpu_torch.ops.scalable import chunked_masked_topk, user_csr
 from lgcnhs_tpu_torch.ops.topk import retrieve_topk
 from lgcnhs_tpu_torch.parallel.sharding import distributed_retrieve_topk
-from lgcnhs_tpu_torch.runtime.logging import get_logger, stage_timer
+from lgcnhs_tpu_torch.runtime.logging import get_logger, span, stage_timer
 from lgcnhs_tpu_torch.runtime.mesh import mesh_from_config
 from lgcnhs_tpu_torch.train import trainer
 from lgcnhs_tpu_torch.train.trainer import load_checkpoint, train_lightgcn
@@ -67,28 +70,62 @@ def recommend_gcn(graph: InteractionGraph, cfg: Config, params: LightGCNParams) 
     train AND val positives masked to -1024, top-k
     (``model/LightGCN/recommend.py:68-125``), through
     ``ops.topk.retrieve_topk`` on the tables' device (the fused retrieval
-    kernel on CUDA for f32 tables). When the (U, I) f32 scores would pass
-    the trainer's 4 GB ``DENSIFY_BUDGET_BYTES`` (the JAX branch's 4e9),
-    retrieval runs in user chunks with seen masks from a CSR of train+val
+    kernel on CUDA for f32 tables). The one LightGCN[Opti] serving path, of
+    ``cli/main`` (through ``recommend``) and ``cli/retrieve`` alike.
+
+    On one device the (2, n) int32 train+val ``edge_array`` is written on
+    the host, uploaded once, and seen is set on the tables' device from it
+    (``data/graph.dense_seen``); nothing is kept between calls. When the
+    (U, I) f32 scores would pass the trainer's 4 GB
+    ``DENSIFY_BUDGET_BYTES`` (the JAX branch's 4e9), retrieval runs in user
+    chunks with seen masks from a CSR of train+val
     (``ops/scalable.chunked_masked_topk``): the same ids, no (U, I) array.
     With a mesh the catalog is item-sharded and ranked by the distributed
     top-k merge (``parallel/sharding.distributed_retrieve_topk``: the
-    retrieval kernel on each rank's items on CUDA)."""
+    retrieval kernel on each rank's items on CUDA).
+
+    Each call is a ``retrieve.pass`` span (counted in
+    ``recommend_gcn.passes``) holding ``retrieve.build`` (the edge array on
+    the host, then seen on the device; the chunked branch's CSR; the mesh's
+    host seen), ``retrieve.upload`` (the edge array's copy;
+    ``recommend_gcn.h2d_bytes`` adds its 8 n bytes, n the train+val rows),
+    ``retrieve.rank`` (the launch, the chunks or the plain chain) and
+    ``retrieve.download`` (``.cpu().numpy()``, which waits for the card)."""
     mesh = mesh_from_config(cfg.compute)
-    if mesh is None and 4.0 * graph.n_users * graph.n_items > trainer.DENSIFY_BUDGET_BYTES:
-        seen_edges = EdgeSet(np.concatenate([graph.train.users, graph.val.users]),
-                             np.concatenate([graph.train.items, graph.val.items]))
-        rowptr, cols = user_csr(graph.n_users, seen_edges)
-        return chunked_masked_topk(params.user_emb, params.item_emb, rowptr, cols,
-                                   cfg.k).cpu().numpy()
-    seen = torch.from_numpy(
-        pos_bool_matrix(graph.n_users, graph.n_items, graph.train, graph.val))
-    if mesh is not None:
-        rec = distributed_retrieve_topk(mesh, params.user_emb, params.item_emb, seen, cfg.k)
-    else:
-        rec = retrieve_topk(params.user_emb, params.item_emb, seen.to(params.user_emb.device),
-                            cfg.k)
-    return rec.cpu().numpy()
+    ue, ie = params.user_emb, params.item_emb
+    count(_COUNTERS, "passes")
+    with span("retrieve.pass"):
+        if mesh is None and 4.0 * graph.n_users * graph.n_items > trainer.DENSIFY_BUDGET_BYTES:
+            with span("retrieve.build"):
+                seen_edges = EdgeSet(np.concatenate([graph.train.users, graph.val.users]),
+                                     np.concatenate([graph.train.items, graph.val.items]))
+                rowptr, cols = user_csr(graph.n_users, seen_edges)
+            with span("retrieve.rank"):
+                rec = chunked_masked_topk(ue, ie, rowptr, cols, cfg.k)
+        elif mesh is not None:
+            with span("retrieve.build"):
+                seen = torch.from_numpy(
+                    pos_bool_matrix(graph.n_users, graph.n_items, graph.train, graph.val))
+            with span("retrieve.rank"):
+                rec = distributed_retrieve_topk(mesh, ue, ie, seen, cfg.k)
+        else:
+            with span("retrieve.build"):
+                edges = edge_array(graph.train, graph.val)
+            with span("retrieve.upload"):
+                count(_COUNTERS, "h2d_bytes", edges.nbytes)
+                edges = torch.from_numpy(edges).to(ue.device)
+            with span("retrieve.build"):
+                seen = dense_seen(graph.n_users, graph.n_items, edges)
+                del edges
+            with span("retrieve.rank"):
+                rec = retrieve_topk(ue, ie, seen, cfg.k)
+        with span("retrieve.download"):
+            return rec.cpu().numpy()
+
+
+recommend_gcn.passes = 0  # calls
+recommend_gcn.h2d_bytes = 0  # bytes of the host arrays the calls handed to .to(device)
+_COUNTERS = recommend_gcn  # their owner, also where a caller wraps the module's name
 
 
 def recommend(
